@@ -1,0 +1,225 @@
+"""LZ4 device block encoder through hand-written Hopper kernels.
+
+The counterpart of tpu7z/ops/lz4_pallas.py, with the same contract:
+`encode_blocks(blocks, ns, W)` returns `(out (B, OUT_CAP) uint8,
+used (B,) int32)`, and block b's LZ4 bytes are `out[b, :used[b]]`.
+
+The path is the sorted-neighbour candidates (`torch.sort`, as the TPU path
+left its sorts to XLA) followed by five kernels from csrc/lz4_stages.cu:
+
+  lz4_match      words, tier-A window, run lengths   (TPU kernel a1)
+  lz4_parse      lazy greedy parse                   (a2)
+  lz4_geometry   sequence geometry and prefix sums   (a3)
+  lz4_emit_core  core bytes                          (b1 + b2)
+  lz4_expand     255-runs inserted                   (c)
+
+Each stage has a wrapper here. On CPU tensors it runs the plain PyTorch
+version from lz4_plane.py; on CUDA tensors it launches its kernel, adds
+one to LAUNCHES[name], or raises. There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from . import lz4_plane as P
+
+BLOCK = P.BLOCK
+OUT_CAP = P.OUT_CAP
+KERNELS = ("lz4_match", "lz4_parse", "lz4_geometry", "lz4_emit_core",
+           "lz4_expand")
+
+# kernel launches made by the wrappers in this process, by kernel name
+LAUNCHES = {k: 0 for k in KERNELS}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "lz4_match": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "lz4_parse": [_P, _P, _I, _P],
+    "lz4_geometry": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "lz4_emit_core": [_P, _P, _P, _P, _P, _I, _P],
+    "lz4_expand": [_P, _P, _P, _P, _I, _P],
+}
+_lib = None
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.load("lz4_stages")
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name + "_launch")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.lz4_geo_planes.argtypes = []
+        lib.lz4_geo_planes.restype = ctypes.c_int
+        lib.lz4_error_string.argtypes = [ctypes.c_int]
+        lib.lz4_error_string.restype = ctypes.c_char_p
+        if lib.lz4_geo_planes() != len(P.GEO_NAMES):
+            raise RuntimeError("csrc/lz4_stages.cu and GEO_NAMES disagree")
+        _lib = lib
+    return _lib
+
+
+def _launch(name, *args):
+    """Launch kernel `name` on the current stream; tensors go as device
+    pointers, ints as ints."""
+    lib = _library()
+    stream = torch.cuda.current_stream().cuda_stream
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = getattr(lib, name + "_launch")(*cargs, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: {lib.lz4_error_string(err).decode()}")
+    LAUNCHES[name] += 1
+
+
+def _check(t, name, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _on_card(device):
+    """True for CUDA (launch the kernel), False for the CPU (plain version);
+    anything else raises."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {device}")
+
+
+def _check_ns(ns, B, device):
+    """Valid lengths only: the kernels size their writes from them."""
+    _check(ns, "ns", torch.int32, (B,), device)
+    if bool(((ns < 0) | (ns > BLOCK)).any()):
+        raise ValueError(f"ns: every length must lie in [0, {BLOCK}]")
+
+
+def _check_batch(blocks, ns):
+    if not isinstance(blocks, torch.Tensor) or blocks.dim() != 2:
+        raise ValueError("blocks: expected a (B, BLOCK) uint8 tensor")
+    B = blocks.shape[0]
+    _check(blocks, "blocks", torch.uint8, (B, BLOCK), blocks.device)
+    _check_ns(ns, B, blocks.device)
+    return B, blocks.device
+
+
+def candidates(blocks, ns):
+    """Sorted-neighbour candidate planes (so8, so4a, so4b) on any device."""
+    _check_batch(blocks, ns)
+    return P.candidates(P.phase0_words(blocks), ns)
+
+
+def match_lengths(blocks, ns, so8, so4a, so4b, W: int = P.W_DEFAULT):
+    """(mlen, moff) (B, BLOCK) int32 from the candidate planes and the
+    tier-A window of width W."""
+    B, dev = _check_batch(blocks, ns)
+    for name, t in (("so8", so8), ("so4a", so4a), ("so4b", so4b)):
+        _check(t, name, torch.int32, (B, BLOCK), dev)
+    if not 0 <= W < BLOCK:
+        raise ValueError(f"W={W} out of range")
+    if not _on_card(dev):
+        return P.match_lengths_ref(blocks, ns, so8, so4a, so4b, W)
+    mlen = torch.empty((B, BLOCK), dtype=torch.int32, device=dev)
+    moff = torch.empty((B, BLOCK), dtype=torch.int32, device=dev)
+    _launch("lz4_match", blocks, ns, so8, so4a, so4b, mlen, moff, B, W)
+    return mlen, moff
+
+
+def parse(mlen):
+    """is_start (B, BLOCK) bool."""
+    if not isinstance(mlen, torch.Tensor) or mlen.dim() != 2:
+        raise ValueError("mlen: expected a (B, BLOCK) int32 tensor")
+    B, dev = mlen.shape[0], mlen.device
+    _check(mlen, "mlen", torch.int32, (B, BLOCK), dev)
+    if not _on_card(dev):
+        return P.phase3_parse(mlen)
+    st = torch.empty((B, BLOCK), dtype=torch.uint8, device=dev)
+    _launch("lz4_parse", mlen, st, B)
+    return st.view(torch.bool)
+
+
+def geometry(mlen, moff, is_start, ns):
+    """Geometry dict: (B, BLOCK) int32 planes named by GEO_NAMES, and
+    `core_used`, `used` (B,) int32."""
+    B, dev = mlen.shape[0], mlen.device
+    _check(mlen, "mlen", torch.int32, (B, BLOCK), dev)
+    _check(moff, "moff", torch.int32, (B, BLOCK), dev)
+    _check(is_start, "is_start", torch.bool, (B, BLOCK), dev)
+    _check_ns(ns, B, dev)
+    if not _on_card(dev):
+        return P.phase4_geometry(mlen, moff, is_start, ns)
+    planes = torch.empty((B, len(P.GEO_NAMES), BLOCK), dtype=torch.int32,
+                         device=dev)
+    core_used = torch.empty((B,), dtype=torch.int32, device=dev)
+    used = torch.empty((B,), dtype=torch.int32, device=dev)
+    _launch("lz4_geometry", mlen, moff, is_start.view(torch.uint8), ns,
+            planes, core_used, used, B)
+    geo = {k: planes[:, i] for i, k in enumerate(P.GEO_NAMES)}
+    geo["planes"] = planes
+    geo["core_used"] = core_used
+    geo["used"] = used
+    return geo
+
+
+def _planes(geo, B, dev):
+    """The stacked geometry planes the kernels read."""
+    planes = geo.get("planes")
+    if planes is None:
+        planes = torch.stack([geo[k] for k in P.GEO_NAMES], dim=1)
+    _check(planes, "geo planes", torch.int32, (B, len(P.GEO_NAMES), BLOCK), dev)
+    for k in ("core_used", "used"):
+        _check(geo[k], k, torch.int32, (B,), dev)
+    return planes
+
+
+def emit_core(blocks, moff, geo):
+    """Core bytes (B, CORE_CAP) uint8, zero from core_used on."""
+    B, dev = blocks.shape[0], blocks.device
+    _check(blocks, "blocks", torch.uint8, (B, BLOCK), dev)
+    _check(moff, "moff", torch.int32, (B, BLOCK), dev)
+    if not _on_card(dev):
+        return P.phase5_core(blocks, moff, geo)
+    planes = _planes(geo, B, dev)
+    core = torch.empty((B, P.CORE_CAP), dtype=torch.uint8, device=dev)
+    _launch("lz4_emit_core", blocks, moff, planes, geo["core_used"], core, B)
+    return core
+
+
+def expand(core, geo):
+    """(out (B, OUT_CAP) uint8, used (B,) int32) with the 255-runs in."""
+    B, dev = core.shape[0], core.device
+    _check(core, "core", torch.uint8, (B, P.CORE_CAP), dev)
+    if not _on_card(dev):
+        return P.phase6_expand(core, geo)
+    planes = _planes(geo, B, dev)
+    out = torch.empty((B, OUT_CAP), dtype=torch.uint8, device=dev)
+    _launch("lz4_expand", core, planes, geo["used"], out, B)
+    return out, geo["used"]
+
+
+def encode_blocks(blocks, ns, W: int = P.W_DEFAULT):
+    """blocks (B, BLOCK) uint8 zero padded past ns, ns (B,) int32.
+
+    Returns (out (B, OUT_CAP) uint8, used (B,) int32)."""
+    so8, so4a, so4b = candidates(blocks, ns)
+    mlen, moff = match_lengths(blocks, ns, so8, so4a, so4b, W)
+    geo = geometry(mlen, moff, parse(mlen), ns)
+    return expand(emit_core(blocks, moff, geo), geo)
