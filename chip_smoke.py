@@ -5,17 +5,27 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit; build the kernels from
-     tpu7z_torch/csrc with nvcc;
-  2. each of the five kernels against its plain PyTorch version on the
-     card, exact equality, on test patterns, a short block, the first
-     2 MiB of the corpus (W = 0 and 16) and the whole 32 MiB corpus
-     (W = 0, the main path's shapes);
+     tpu7z_torch/csrc with nvcc, one process per source, all at once;
+  2. each of the five encoder kernels against its plain PyTorch version
+     on the card, exact equality, on test patterns, a short block, the
+     first 2 MiB of the corpus (W = 0 and 16) and the whole 32 MiB corpus
+     (W = 0, the main path's shapes); the row-sort kernel against its
+     plain version, exactly, on random matcher keys with two payloads,
+     fully random unique keys (N = 16384 and 65536, 0 and 3 payloads),
+     ragged rows (N = 1000 and 12345), the corpus's tier-B and tier-B4
+     keys and the match finder's keys (sentinels, short rows);
   3. the main path: `shard_compress_lz4_device` over the 32 MiB corpus on
-     the card, launch counts per kernel, the frame decoded by the port's
-     decoder, and the compression ratio checked;
-  4. times on the card (CUDA events, median of 5 after a warm-up) for the
-     whole encoder, each kernel, its plain version and the candidate
-     sorts.
+     the card, launch counts per kernel (two row sorts), the frame
+     decoded by the port's decoder, and the compression ratio checked;
+  4. the match-finder path, each part with the counts set to 0 before it:
+     `find_matches` over the corpus with the kernel against the same with
+     the plain sort; `compress_frame_device(corpus)` decoded with its
+     checksums verified; `shard_compress_lz4` over the first 2 MiB;
+     `entry()` against its CPU run;
+  5. times on the card (CUDA events, median of 5 after a warm-up) for the
+     whole encoder, each kernel, its plain version, the row sort beside
+     `torch.sort`, `find_matches` with either sort, and the parts of
+     `compress_frame_device` (host clock).
 The line before the last is the per-kernel JSON; the last line is the
 device JSON. Imports nothing of JAX or tpu7z.
 """
@@ -37,13 +47,16 @@ EXPECTED_RATIO = 1.818        # device_ratio of the 32 MiB corpus at W=0
 # sha256 of make_corpus(32 MiB), the bytes that ratio was measured on
 CORPUS_SHA256 = "05224620a507811d6a855ddf98cc7f0a4a1ede748fba0f6f8747ddb639b6cb2a"
 SOURCE = "tpu7z_torch/csrc/lz4_stages.cu"
+SORT_SOURCE = "tpu7z_torch/csrc/sort.cu"
 REPLACES = {
     "lz4_match": "tpu7z/ops/lz4_pallas.py:58",
     "lz4_parse": "tpu7z/ops/lz4_pallas.py:72",
     "lz4_geometry": "tpu7z/ops/lz4_pallas.py:77",
     "lz4_emit_core": "tpu7z/ops/lz4_pallas.py:108,120",
     "lz4_expand": "tpu7z/ops/lz4_pallas.py:127",
+    "sort_rows": "tpu7z/ops/sort_pallas.py:76",
 }
+ODD = 2654435761
 
 
 def log(msg):
@@ -167,6 +180,53 @@ class Stages:
         }
 
 
+def sort_inputs(dev, corpus_blocks, corpus_ns, P, M):
+    """(name, key, payloads, begin_bit) cases for the row sort: random
+    matcher keys (hash16 << 16 | pos) with a uint32 and an int32 payload;
+    fully random unique keys with 0 and 3 payloads; ragged rows; the
+    corpus's tier-B and tier-B4 keys; the match finder's keys over the
+    corpus with some rows cut short (sentinel tails), at hashlog 16 and
+    12."""
+    rng = np.random.default_rng(11)
+    B, N = 64, P.BLOCK
+    h = rng.integers(0, 1 << 16, (B, N), dtype=np.uint32)
+    probe = torch.from_numpy((h << 16) | np.arange(N, dtype=np.uint32)).to(dev)
+    pu = torch.from_numpy(rng.integers(0, 1 << 32, (B, N), dtype=np.uint32)).to(dev)
+    pi = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (B, N), dtype=np.int32)).to(dev)
+    cases = [("probe_2pay", probe, (pu, pi), 0), ("probe_2pay", probe, (pu, pi), 16)]
+    for n in (16384, 65536):
+        c = rng.integers(0, 1 << 32, (B, 1), dtype=np.uint64)
+        k = (np.arange(n, dtype=np.uint64) * ODD + c) % (1 << 32)
+        key = torch.from_numpy(rng.permuted(k, axis=1).astype(np.uint32).view(np.int32)).to(dev)
+        pays = tuple(torch.from_numpy(rng.integers(0, 1 << 32, (B, n), dtype=np.uint32)
+                                      .view(dt)).to(dev)
+                     for dt in (np.int32, np.uint32, np.float32))
+        cases += [(f"random_{n}", key, (), 0), (f"random_{n}_3pay", key, pays, 0)]
+    # rows that end inside a tile and inside a warp's step
+    for n, bb in ((1000, 0), (12345, 8)):
+        key = torch.from_numpy(rng.integers(0, 1 << 32, (3, n), dtype=np.uint32)).to(dev)
+        pays = tuple(torch.from_numpy(rng.integers(0, 1 << 31, (3, n), dtype=np.int32)).to(dev)
+                     for _ in range(3))
+        cases.append((f"ragged_{n}_3pay", key, pays, bb))
+    words = P.phase0_words(corpus_blocks)
+    for name, key in (("tier_b", P.tier_b_key(words)), ("tier_b4", P.tier_b4_key(words))):
+        cases += [(name, key, (), 16), (name, key, (), 0)]
+    short = corpus_ns.clone()
+    short[::7] = torch.arange(0, short.shape[0], 7, device=dev, dtype=torch.int32) * 97 % P.BLOCK
+    for hashlog in (16, 12):
+        _, hm, _ = M.hashes(corpus_blocks, short, hashlog)
+        cases += [(f"find_matches_h{hashlog}", M.sort_key(hm), (), 16)]
+    return cases
+
+
+def bits64(t):
+    """The 32-bit pattern of each element as int64 (int64 tensors as they
+    are), so any carrier dtype compares and subtracts."""
+    if t.dtype == torch.int64:
+        return t
+    return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
 def max_abs_err(got, want):
     err = 0
     for g, w in zip(got, want):
@@ -181,10 +241,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from tpu7z_torch.device import resolve_device
+    from tpu7z_torch.entry import entry
     from tpu7z_torch.models.lz4 import frame
+    from tpu7z_torch.models.lz4 import torch_backend as TB
     from tpu7z_torch.ops import _build
     from tpu7z_torch.ops import lz4_cuda as K
     from tpu7z_torch.ops import lz4_plane as P
+    from tpu7z_torch.ops import match as M
+    from tpu7z_torch.ops import sort_cuda as S
+    from tpu7z_torch.ops.hashing import xxh32
     from tpu7z_torch.parallel import sharded
     from tpu7z_torch.utils.corpus import make_corpus
 
@@ -240,18 +305,42 @@ def main() -> int:
         if K.LAUNCHES[k] == 0:
             raise AssertionError(f"{k} was never launched in the checks")
 
+    errs["sort_rows"] = 0
+    for name, key, pays, bb in sort_inputs(dev, cb, cn, P, M):
+        got = S.sort_rows(key, *pays, begin_bit=bb)
+        torch.cuda.synchronize()
+        want = S.sort_rows_ref(key, *pays, begin_bit=bb)
+        if [g.dtype for g in got] != [w.dtype for w in want]:
+            raise AssertionError(f"sort_rows changed a dtype on {name}")
+        e = max_abs_err([bits64(g) for g in got], [bits64(w) for w in want])
+        errs["sort_rows"] = max(errs["sort_rows"], e)
+        if e:
+            raise AssertionError(f"sort_rows differs from its plain version on {name} "
+                                 f"begin_bit={bb}: max abs err {e}")
+        log(f"check sort_rows {name} begin_bit={bb}: {tuple(key.shape)} {key.dtype}, "
+            f"{len(pays)} payloads, equal")
+
+    def reset_counts():
+        K.reset_launches()
+        S.reset_launches()
+
+    def counts():
+        return {**K.LAUNCHES, **S.LAUNCHES}
+
     # 3. the main path, counted
-    K.reset_launches()
+    reset_counts()
     t = time.time()
     framed = sharded.shard_compress_lz4_device(corpus, W=0)
     torch.cuda.synchronize()
     t_main = time.time() - t
-    launches = dict(K.LAUNCHES)
+    launches = counts()
     log(f"main path: shard_compress_lz4_device({len(corpus)} bytes, W=0) -> {len(framed)} bytes "
         f"in {t_main:.2f} s (first call), launches {launches}")
     for k, c in launches.items():
         if c == 0:
             raise AssertionError(f"main path never launched {k}")
+    if launches["sort_rows"] != 2:
+        raise AssertionError(f"main path: {launches['sort_rows']} row sorts, expected 2")
     t = time.time()
     if frame.decompress(framed) != corpus:
         raise AssertionError("the frame does not decode to the input")
@@ -267,16 +356,84 @@ def main() -> int:
     if round(ratio, 3) != EXPECTED_RATIO:
         raise AssertionError(f"device_ratio {ratio:.4f} != {EXPECTED_RATIO}")
 
-    # 4. times on the card
+    # 4. the match-finder path, each part counted on its own
+    def counted(name, fn):
+        reset_counts()
+        t = time.time()
+        r = fn()
+        torch.cuda.synchronize()
+        c = counts()
+        log(f"{name}: {time.time() - t:.2f} s (host clock), launches {c}")
+        if c["sort_rows"] == 0:
+            raise AssertionError(f"{name} never launched sort_rows")
+        return r
+
+    fm = counted("find_matches over the corpus", lambda: M.find_matches(cb, cn))
+    fm_plain = M.find_matches(cb, cn, sort=S.sort_rows_ref)
+    for g, w, what in zip(fm, fm_plain, ("selected", "mlen", "moff")):
+        if not torch.equal(g, w):
+            raise AssertionError(f"find_matches {what} differs with the plain sort")
+    log(f"find_matches ({cb.shape[0]} blocks) with the kernel equals it with the plain "
+        f"sort: {int(fm[0].sum())} matches selected")
+    fm_frame = counted("compress_frame_device(corpus)", lambda: TB.compress_frame_device(corpus))
+    t = time.time()
+    if frame.decompress(fm_frame) != corpus:
+        raise AssertionError("compress_frame_device's frame does not decode to the input")
+    log(f"compress_frame_device: {len(fm_frame)} bytes, ratio {len(corpus) / len(fm_frame):.6f}; "
+        f"decoded with checksum and content size verified in {time.time() - t:.1f} s: equal")
+    head = corpus[:2 << 20]
+    box = counted("shard_compress_lz4(2 MiB)", lambda: sharded.shard_compress_lz4(head))
+    if frame.decompress(box) != head:
+        raise AssertionError("shard_compress_lz4's container does not decode to the input")
+    log(f"shard_compress_lz4: {len(box)} bytes in the skippable container, decoded: equal")
+    fn, args = entry()
+    got = counted("entry()", lambda: fn(*args))
+    cfn, cargs = entry(device="cpu")
+    for g, w in zip(got, cfn(*cargs)):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError("entry() on the card differs from its CPU run")
+    log("entry(): equal to its CPU run")
+
+    # 5. times on the card
     enc_ms = timed(lambda: K.encode_blocks(cb, cn, 0))
     log(f"encode_blocks {len(corpus) / 2**20:.0f} MiB ({cb.shape[0]} blocks, W=0): {enc_ms:.3f} ms, "
         f"{len(corpus) / enc_ms / 1e3:.1f} MB/s")
     words = P.phase0_words(cb)
-    cand_ms = timed(lambda: P.candidates(words, cn))
-    keys = (P.tier_b_key(words), P.tier_b4_key(words))
-    sort_ms = [timed(lambda k=k: torch.sort(k, dim=1, stable=True)) for k in keys]
-    log(f"candidates (tiers B and B4, plain PyTorch): {cand_ms:.3f} ms; "
-        f"torch.sort of the tier-B keys {sort_ms[0]:.3f} ms, tier-B4 keys {sort_ms[1]:.3f} ms")
+    cand_ms = timed(lambda: K.candidates(cb, cn))
+    cand_plain_ms = timed(lambda: P.candidates(words, cn))
+    log(f"candidates (tiers B and B4): {cand_ms:.3f} ms with the row-sort kernel, "
+        f"{cand_plain_ms:.3f} ms plain (torch.sort)")
+    sort_row = {}
+    for tier, key in (("tier_b", P.tier_b_key(words)), ("tier_b4", P.tier_b4_key(words))):
+        k32 = S.raw_bits(key)
+        ms = timed(lambda: S.sort_rows(k32, begin_bit=16))
+        path_ms = timed(lambda: S.sort_rows(key, begin_bit=16))
+        plain_ms = timed(lambda: S.sort_rows_ref(k32, begin_bit=16))
+        lib_ms = timed(lambda: torch.sort(key, dim=1, stable=True))
+        bound_ms = 2 * k32.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        log(f"sort_rows {tier} keys {tuple(k32.shape)} u32, begin_bit=16: {ms:.3f} ms "
+            f"(as the path calls it, int64 in and out: {path_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+            f"torch.sort (int64, stable) {lib_ms:.3f} ms, bound {bound_ms:.3f} ms")
+        sort_row[tier] = (ms, plain_ms, bound_ms, lib_ms)
+    fm_ms = timed(lambda: M.find_matches(cb, cn))
+    fm_plain_ms = timed(lambda: M.find_matches(cb, cn, sort=S.sort_rows_ref))
+    log(f"find_matches ({cb.shape[0]} blocks): {fm_ms:.3f} ms with the row-sort kernel, "
+        f"{fm_plain_ms:.3f} ms with the plain sort")
+    blocks_np, lengths_np = TB.pad_blocks(corpus, P.BLOCK)
+    t = time.perf_counter()
+    sel, mlen, moff = TB.find_matches_host(blocks_np, lengths_np)
+    t_dev = time.perf_counter() - t
+    t = time.perf_counter()
+    for b in range(blocks_np.shape[0]):
+        TB.emit_block(blocks_np[b, :int(lengths_np[b])], sel[b], mlen[b], moff[b])
+    t_emit = time.perf_counter() - t
+    t = time.perf_counter()
+    xxh32(corpus)
+    t_xxh = time.perf_counter() - t
+    log(f"compress_frame_device parts (host clock): device match finding with copies "
+        f"{t_dev:.3f} s, host emission {t_emit:.3f} s")
+    log(f"compress_frame_device's xxh32 of the {len(corpus)}-byte content (pure Python, "
+        f"host clock): {t_xxh:.3f} s")
 
     moved = full.bytes_moved()
     kernels = []
@@ -292,6 +449,12 @@ def main() -> int:
                         "max_abs_err": errs[k], "equal": errs[k] == 0,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": "bytes", "library_ms": None})
+    ms, plain_ms, bound_ms, lib_ms = sort_row["tier_b"]
+    kernels.append({"name": "sort_rows", "route": "cuda", "source": SORT_SOURCE,
+                    "replaces": REPLACES["sort_rows"], "launches": launches["sort_rows"],
+                    "max_abs_err": errs["sort_rows"], "equal": errs["sort_rows"] == 0,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": lib_ms})
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

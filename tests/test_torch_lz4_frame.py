@@ -28,6 +28,17 @@ PAYLOADS = {"three_blocks_short_tail": 3 * BLOCK + 1234,
             "empty": 0}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once; one intra-op
+    thread each keeps PyTorch's thread pools from contending for the
+    cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("size", PAYLOADS.values(), ids=PAYLOADS.keys())
 def test_frame_matches_jax_and_decodes(size):
     payload = make_corpus(3 * BLOCK + 1234)[:size]
@@ -87,7 +98,9 @@ def test_port_imports_neither_jax_nor_tpu7z():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, tpu7z_torch.parallel.sharded, "
-            "tpu7z_torch.ops.lz4_cuda; "
+            "tpu7z_torch.ops.lz4_cuda, tpu7z_torch.ops.match, "
+            "tpu7z_torch.ops.sort_cuda, "
+            "tpu7z_torch.models.lz4.torch_backend, tpu7z_torch.entry; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'tpu7z')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -97,8 +110,15 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_no_silent_cpu(monkeypatch):
-    """With no CUDA device and no device named, the entry point raises
+    """With no CUDA device and no device named, every entry point raises
     instead of running on the CPU."""
+    from tpu7z_torch.entry import entry
+    from tpu7z_torch.models.lz4 import torch_backend
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        sharded.shard_compress_lz4_device(b"x")
+    for call in (lambda: sharded.shard_compress_lz4_device(b"x"),
+                 lambda: torch_backend.compress_frame_device(b"x"),
+                 lambda: sharded.shard_compress_lz4(b"x"),
+                 entry):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

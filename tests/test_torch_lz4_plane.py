@@ -30,6 +30,17 @@ NAMES = ("text", "zeros_mid", "far", "random", "short", "corpus", "zeros")
 MASKS = ("kept", "anchor", "mstart", "long_run", "ml_ext")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once; one intra-op
+    thread each keeps PyTorch's thread pools from contending for the
+    cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _patterns():
     """Blocks that exercise every phase: literals, near and far matches,
     long literal runs (255-runs), row-boundary merges, a short block, real

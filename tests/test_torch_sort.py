@@ -1,0 +1,148 @@
+"""The port's row sort (tpu7z_torch.ops.sort_cuda) against the JAX
+package's bitonic sort and numpy's stable argsort.
+
+On CPU tensors `sort_rows` runs its plain version, `sort_rows_ref`; the
+CUDA kernel behind it is held against that plain version on the card by
+chip_smoke.py. Keys and payloads are integers or raw bits, so the
+tolerance is exact equality.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from tpu7z.ops.sort_pallas import bitonic_sort  # noqa: E402
+from tpu7z_torch.ops import sort_cuda  # noqa: E402
+
+ODD = 2654435761
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once; one intra-op
+    thread each keeps PyTorch's thread pools from contending for the
+    cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _matcher_keys(B, N, seed=11):
+    """tools/probe_bitonic.py's keys: random 16-bit hash << 16 | pos."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(0, 1 << 16, (B, N), dtype=np.uint32)
+    return (h << 16) | np.arange(N, dtype=np.uint32)
+
+
+def _random_unique_keys(B, N, seed=5):
+    """Unique 32-bit keys over the whole range: (pos * odd + c) mod 2**32,
+    shuffled within each row."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for b in range(B):
+        c = int(rng.integers(0, 1 << 32))
+        k = (np.arange(N, dtype=np.uint64) * ODD + c) % (1 << 32)
+        rows.append(rng.permutation(k).astype(np.uint32))
+    return np.stack(rows)
+
+
+def _as(keys_u32, dtype):
+    t = torch.from_numpy(keys_u32)
+    if dtype == torch.int64:
+        return t.to(torch.int64)
+    return t.view(dtype)
+
+
+def _u32(t):
+    """Sorted keys back as numpy uint32, whatever their carrier dtype."""
+    if t.dtype == torch.int64:
+        return t.numpy().astype(np.uint32)
+    return t.view(torch.int32).numpy().view(np.uint32)
+
+
+def test_sort_rows_equals_bitonic_sort_interpret():
+    key = _matcher_keys(1, 65536)
+    rng = np.random.default_rng(12)
+    pu = rng.integers(0, 1 << 32, key.shape, dtype=np.uint32)
+    pi = rng.integers(-(1 << 31), 1 << 31, key.shape, dtype=np.int32)
+    jk, jpu, jpi = (np.asarray(x) for x in bitonic_sort(
+        jnp.asarray(key), jnp.asarray(pu), jnp.asarray(pi), interpret=True))
+    tk, tpu, tpi = sort_cuda.sort_rows(torch.from_numpy(key),
+                                       torch.from_numpy(pu),
+                                       torch.from_numpy(pi))
+    assert (tk.dtype, tpu.dtype, tpi.dtype) == (torch.uint32, torch.uint32,
+                                                torch.int32)
+    assert np.array_equal(_u32(tk), jk)
+    assert np.array_equal(_u32(tpu), jpu)
+    assert np.array_equal(tpi.numpy(), jpi)
+    order = np.argsort(key, axis=1, kind="stable")
+    assert np.array_equal(jk, np.take_along_axis(key, order, 1))
+
+
+PAYLOAD_SETS = {"none": (), "one_int32": (torch.int32,),
+                "three": (torch.int32, torch.uint32, torch.float32)}
+
+
+@pytest.mark.parametrize("pays", PAYLOAD_SETS.values(), ids=PAYLOAD_SETS.keys())
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.uint32, torch.int64],
+                         ids=["int32", "uint32", "int64"])
+@pytest.mark.parametrize("N", [16384, 65536])
+def test_sort_rows_random_unique_keys(N, key_dtype, pays):
+    key = _random_unique_keys(2, N)
+    rng = np.random.default_rng(N)
+    raw = [rng.integers(0, 1 << 32, key.shape, dtype=np.uint32) for _ in pays]
+    ptens = [torch.from_numpy(r).view(dt) for r, dt in zip(raw, pays)]
+    got = sort_cuda.sort_rows(_as(key, key_dtype), *ptens)
+    order = np.argsort(key, axis=1, kind="stable")
+    assert got[0].dtype == key_dtype
+    assert np.array_equal(_u32(got[0]), np.take_along_axis(key, order, 1))
+    for g, r, dt in zip(got[1:], raw, pays):
+        assert g.dtype == dt
+        assert np.array_equal(g.view(torch.int32).numpy().view(np.uint32),
+                              np.take_along_axis(r, order, 1))
+
+
+def test_sort_rows_begin_bit_16_gives_the_full_order_of_matcher_keys():
+    key = _matcher_keys(3, 65536, seed=2)
+    full, = sort_cuda.sort_rows(torch.from_numpy(key))
+    fast, = sort_cuda.sort_rows(torch.from_numpy(key), begin_bit=16)
+    want = np.sort(key, axis=1)
+    assert np.array_equal(_u32(full), want)
+    assert np.array_equal(_u32(fast), want)
+
+
+@pytest.mark.parametrize("begin_bit", [8, 16, 24])
+def test_sort_rows_begin_bit_is_a_stable_sort_of_the_high_bits(begin_bit):
+    key = _random_unique_keys(2, 5000, seed=begin_bit)
+    pay = np.arange(key.size, dtype=np.int32).reshape(key.shape)
+    k, p = sort_cuda.sort_rows(torch.from_numpy(key), torch.from_numpy(pay),
+                               begin_bit=begin_bit)
+    order = np.argsort(key >> begin_bit, axis=1, kind="stable")
+    assert np.array_equal(_u32(k), np.take_along_axis(key, order, 1))
+    assert np.array_equal(p.numpy(), np.take_along_axis(pay, order, 1))
+
+
+def _bad_calls():
+    k = torch.zeros((2, 16), dtype=torch.int32)
+    return {
+        "N_over_65536": ((torch.zeros((1, 65537), dtype=torch.int32),), {}, ValueError),
+        "key_int16": ((k.to(torch.int16),), {}, TypeError),
+        "key_float32": ((k.to(torch.float32),), {}, TypeError),
+        "key_1d": ((k[0],), {}, ValueError),
+        "payload_int64": ((k, k.to(torch.int64)), {}, TypeError),
+        "payload_shape": ((k, k[:, :8].contiguous()), {}, ValueError),
+        "four_payloads": ((k, k, k, k, k), {}, ValueError),
+        "not_contiguous": ((torch.zeros((16, 2), dtype=torch.int32).t(),), {}, ValueError),
+        "begin_bit_4": ((k,), {"begin_bit": 4}, ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", _bad_calls().keys())
+def test_sort_rows_raises(case):
+    args, kw, exc = _bad_calls()[case]
+    with pytest.raises(exc):
+        sort_cuda.sort_rows(*args, **kw)

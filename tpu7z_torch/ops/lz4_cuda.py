@@ -4,8 +4,9 @@ The counterpart of tpu7z/ops/lz4_pallas.py, with the same contract:
 `encode_blocks(blocks, ns, W)` returns `(out (B, OUT_CAP) uint8,
 used (B,) int32)`, and block b's LZ4 bytes are `out[b, :used[b]]`.
 
-The path is the sorted-neighbour candidates (`torch.sort`, as the TPU path
-left its sorts to XLA) followed by five kernels from csrc/lz4_stages.cu:
+The path is the sorted-neighbour candidates, whose two row sorts run in
+the kernel of sort_cuda.py (csrc/sort.cu, the counterpart of the TPU's
+bitonic_sort), followed by five kernels from csrc/lz4_stages.cu:
 
   lz4_match      words, tier-A window, run lengths   (TPU kernel a1)
   lz4_parse      lazy greedy parse                   (a2)
@@ -26,6 +27,7 @@ import torch
 
 from . import _build
 from . import lz4_plane as P
+from . import sort_cuda
 
 BLOCK = P.BLOCK
 OUT_CAP = P.OUT_CAP
@@ -121,10 +123,17 @@ def _check_batch(blocks, ns):
     return B, blocks.device
 
 
+def _sort_keys(key):
+    """The candidate keys hash16 << 16 | pos arrive in position order, so
+    the row sort's two passes over bits 16-31 give their full order."""
+    return sort_cuda.sort_rows(key, begin_bit=16)[0]
+
+
 def candidates(blocks, ns):
-    """Sorted-neighbour candidate planes (so8, so4a, so4b) on any device."""
+    """Sorted-neighbour candidate planes (so8, so4a, so4b) on any device;
+    on the card each tier's sort is one launch of the row-sort kernel."""
     _check_batch(blocks, ns)
-    return P.candidates(P.phase0_words(blocks), ns)
+    return P.candidates(P.phase0_words(blocks), ns, sort=_sort_keys)
 
 
 def match_lengths(blocks, ns, so8, so4a, so4b, W: int = P.W_DEFAULT):
@@ -215,11 +224,16 @@ def expand(core, geo):
     return out, geo["used"]
 
 
-def encode_blocks(blocks, ns, W: int = P.W_DEFAULT):
+def encode_blocks(blocks, ns, W: int = P.W_DEFAULT, tier_b: bool = True):
     """blocks (B, BLOCK) uint8 zero padded past ns, ns (B,) int32.
+    tier_b=False drops the sorted-neighbour tiers: their planes are zero
+    and no sort runs; the tier-A window W still applies.
 
     Returns (out (B, OUT_CAP) uint8, used (B,) int32)."""
-    so8, so4a, so4b = candidates(blocks, ns)
+    if tier_b:
+        so8, so4a, so4b = candidates(blocks, ns)
+    else:
+        so8 = so4a = so4b = torch.zeros_like(blocks, dtype=torch.int32)
     mlen, moff = match_lengths(blocks, ns, so8, so4a, so4b, W)
     geo = geometry(mlen, moff, parse(mlen), ns)
     return expand(emit_core(blocks, moff, geo), geo)

@@ -11,7 +11,8 @@ of the TPU's full-plane shift trees).
 Phases (the TPU kernel of each in brackets):
   0  u32 word at every position                          [a1]
   1  candidate offsets: tier A nearest-offset window     [a1]
-     and the sorted-neighbour tiers B and B4 (`torch.sort`, outside kernels)
+     and the sorted-neighbour tiers B and B4 (the sort is an argument:
+     `torch.sort` here, the row-sort kernel of sort_cuda.py on the card)
   2  match length = verified same-offset run, longest tier wins  [a1]
   3  lazy greedy parse, one cursor per 128-byte row      [a2]
   4  sequence geometry and the output prefix sums        [a3]
@@ -125,10 +126,16 @@ def tier_b4_key(words):
     return ((_mul32(words, HASH_C1) >> 16) << 16) | _pos(words.device)
 
 
-def _sort_by_hash(key, words_list):
-    """Sort positions by their unique key. Returns the sorted keys and each
-    word plane gathered into that order."""
-    skey, _ = torch.sort(key, dim=1, stable=True)
+def sort_keys(key):
+    """The plain sort: each row of unique keys ascending."""
+    return torch.sort(key, dim=1, stable=True).values
+
+
+def _sort_by_hash(key, words_list, sort):
+    """Sort positions by their unique key with `sort` (keys -> sorted
+    keys). Returns the sorted keys and each word plane gathered into that
+    order."""
+    skey = sort(key)
     spos = skey & 0xFFFF
     return skey, [w.gather(1, spos) for w in words_list]
 
@@ -153,27 +160,30 @@ def _unsort(skey, vals, ns):
     return out.to(torch.int32)
 
 
-def tier_b_candidates(words, ns):
+def tier_b_candidates(words, ns, sort=sort_keys):
     """so8 (B, BLOCK) int32: offset to a previous position with the same
     8 bytes, from the first verified of the K=2 sorted predecessors."""
-    skey, sw = _sort_by_hash(tier_b_key(words), [words, _next_word(words)])
+    skey, sw = _sort_by_hash(tier_b_key(words), [words, _next_word(words)],
+                             sort)
     so8s = _probe(skey, sw, 1)
     so8s = torch.where(so8s == 0, _probe(skey, sw, 2), so8s)
     return _unsort(skey, so8s, ns)
 
 
-def tier_b4_candidates(words, ns):
+def tier_b4_candidates(words, ns, sort=sort_keys):
     """(so4a, so4b) (B, BLOCK) int32: offsets to the nearest and the
     second-nearest sorted predecessor with the same 4 bytes, each kept on
     its own."""
-    skey, sw = _sort_by_hash(tier_b4_key(words), [words])
+    skey, sw = _sort_by_hash(tier_b4_key(words), [words], sort)
     return (_unsort(skey, _probe(skey, sw, 1), ns),
             _unsort(skey, _probe(skey, sw, 2), ns))
 
 
-def candidates(words, ns):
-    """The sorted-neighbour planes (so8, so4a, so4b)."""
-    return (tier_b_candidates(words, ns),) + tier_b4_candidates(words, ns)
+def candidates(words, ns, sort=sort_keys):
+    """The sorted-neighbour planes (so8, so4a, so4b); `sort` sorts the
+    rows of a (B, BLOCK) key tensor."""
+    return (tier_b_candidates(words, ns, sort),) + tier_b4_candidates(
+        words, ns, sort)
 
 
 def _tier_runs(so, kmin: int):
