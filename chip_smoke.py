@@ -7,10 +7,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit; build the kernels from
      tpu7z_torch/csrc with nvcc, one process per source, all at once;
   2. each of the five encoder kernels against its plain PyTorch version
-     on the card, exact equality, on test patterns, a short block, the
-     first 2 MiB of the corpus (W = 0 and 16) and the whole 32 MiB corpus
-     (W = 0, the main path's shapes); the row-sort kernel against its
-     plain version, exactly, on random matcher keys with two payloads,
+     on the card, exact equality, on test patterns, short blocks, the
+     edge blocks of the row kernels' joins, the first 2 MiB of the corpus
+     (W = 0 and 16) and the whole 32 MiB corpus (W = 0, the main path's
+     shapes); the row-sort kernel against its plain version, exactly,
+     on random matcher keys with two payloads,
      fully random unique keys (N = 16384 and 65536, 0 and 3 payloads),
      ragged rows (N = 1000 and 12345), the corpus's tier-B and tier-B4
      keys and the match finder's keys (sentinels, short rows);
@@ -23,9 +24,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      checksums verified; `shard_compress_lz4` over the first 2 MiB;
      `entry()` against its CPU run;
   5. times on the card (CUDA events, median of 5 after a warm-up) for the
-     whole encoder, each kernel, its plain version, the row sort beside
-     `torch.sort`, `find_matches` with either sort, and the parts of
-     `compress_frame_device` (host clock).
+     whole encoder, each kernel through its wrapper and as its launch
+     alone (outputs preallocated, 10 launches between the events), its
+     plain version, the row sort beside `torch.sort`, `find_matches` with
+     either sort, and the parts of `compress_frame_device` (host clock);
+     registers and resident CTAs per SM of the two row kernels.
 The line before the last is the per-kernel JSON; the last line is the
 device JSON. Imports nothing of JAX or tpu7z.
 """
@@ -79,9 +82,31 @@ def timed(fn, reps=5):
     return statistics.median(times)
 
 
+def timed_launches(fn, launches=10, reps=5):
+    """Median milliseconds of one call of `fn` on the card, from events
+    around `launches` calls back to back, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
 def patterns(block):
     """Blocks that exercise every phase: text, a long zero run, a far
-    match, random bytes, a short text block and an all-zero block."""
+    match, random bytes, a short text block and an all-zero block; then
+    the edges of the row kernels' row and lane joins: a 128-byte period
+    (every row's match ends at the row end, so odd rows continue; n is no
+    multiple of 4), a 384-byte period (runs across many rows), text cut
+    to 129 and to 3 bytes, and an empty block."""
     rng = np.random.default_rng(7)
     words = [b"alpha ", b"beta ", b"gamma ", b"delta ", b"zstd ", b"tpu "]
     text = b"".join(words[i] for i in rng.integers(0, 6, 14000))[:block]
@@ -93,6 +118,11 @@ def patterns(block):
     pats = [(text.ljust(block, b" "), block), (bytes(zeros_mid), block),
             (bytes(far), block), (rand, block),
             (text[:50000].ljust(block, b"\0"), 50000), (bytes(block), block)]
+    r2 = np.random.default_rng(3)
+    p128 = np.tile(r2.integers(0, 256, 128, dtype=np.uint8), block // 128).tobytes()
+    p384 = np.tile(r2.integers(0, 256, 384, dtype=np.uint8), block // 384 + 1).tobytes()
+    pats += [(d[:n].ljust(block, b"\0"), n)
+             for d, n in ((p128, 65533), (p384, 4099), (text, 129), (text, 3), (b"", 0))]
     blocks = np.stack([np.frombuffer(d, np.uint8) for d, _ in pats])
     return blocks, np.array([n for _, n in pats], np.int32)
 
@@ -115,6 +145,22 @@ class Stages:
         names = P.GEO_NAMES + ("core_used", "used")
         # the kernels after geometry read its stacked planes
         kgeo = K.geometry(mlen, moff, st, ns)
+        B = blocks.shape[0]
+        planes = K._planes(kgeo, B, blocks.device)
+        # each kernel's launch with its outputs preallocated
+        self.launch_args = {
+            "lz4_match": (blocks, ns, *cand, torch.empty_like(mlen),
+                          torch.empty_like(moff), B, W),
+            "lz4_parse": (mlen, torch.empty_like(st, dtype=torch.uint8), B),
+            "lz4_geometry": (mlen, moff, st.view(torch.uint8), ns,
+                             torch.empty_like(planes),
+                             torch.empty_like(kgeo["core_used"]),
+                             torch.empty_like(kgeo["used"]), B),
+            "lz4_emit_core": (blocks, moff, planes, kgeo["core_used"],
+                              torch.empty_like(core), B),
+            "lz4_expand": (core, planes, kgeo["used"],
+                           torch.empty_like(out), B),
+        }
         self.want = {"lz4_match": [mlen, moff], "lz4_parse": [st],
                      "lz4_geometry": [geo[k] for k in names],
                      "lz4_emit_core": [core], "lz4_expand": [out, used]}
@@ -439,16 +485,25 @@ def main() -> int:
     kernels = []
     for k, (kern, plain, _outs) in full.calls.items():
         ms = timed(kern)
+        args = full.launch_args[k]
+        kernel_ms = timed_launches(lambda: K._launch(k, *args))
         plain_ms = timed(plain)
         bound_ms = moved[k] / HBM_BYTES_PER_S * 1e3
-        log(f"{k}: {ms:.3f} ms ({ms / cb.shape[0] * 1e3:.2f} us/block), "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-            f"({moved[k] / 1e6:.1f} MB)")
-        kernels.append({"name": k, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[k], "launches": launches[k],
-                        "max_abs_err": errs[k], "equal": errs[k] == 0,
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": "bytes", "library_ms": None})
+        log(f"{k}: {ms:.3f} ms through the wrapper ({ms / cb.shape[0] * 1e3:.2f} us/block), "
+            f"kernel alone {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms ({moved[k] / 1e6:.1f} MB)")
+        row = {"name": k, "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES[k], "launches": launches[k],
+               "max_abs_err": errs[k], "equal": errs[k] == 0,
+               "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+        if k in K.ROW_KERNELS:
+            info = K.row_kernel_info(k)
+            log(f"{k}: {info['regs']} registers a thread, {info['local_bytes']} local "
+                f"(spill) bytes, {info['threads']} threads a CTA, "
+                f"{info['ctas_per_sm']} CTAs per SM")
+            row.update(info)
+        kernels.append(row)
     ms, plain_ms, bound_ms, lib_ms = sort_row["tier_b"]
     kernels.append({"name": "sort_rows", "route": "cuda", "source": SORT_SOURCE,
                     "replaces": REPLACES["sort_rows"], "launches": launches["sort_rows"],

@@ -43,70 +43,111 @@ enum GeoPlane {
   G_MLC, G_ML_EXT, G_GLEN, G_CORE_POS, G_GAP_HERE, G_GAP_BEFORE, G_NPLANES
 };
 
-// the scan kernels (match, geometry): one CUDA block of SCAN_THREADS per
-// 64 KiB block, each thread owning a contiguous SPAN of positions
-constexpr int SCAN_THREADS = 1024;
-constexpr int SPAN = BLOCK / SCAN_THREADS;      // 64: two threads per row
-constexpr int NWARPS = SCAN_THREADS / 32;
+// The row kernels (match, geometry): one CUDA block per 64 KiB block. A
+// warp takes one 128-byte row at a time and each of its lanes 4 consecutive
+// positions, so a plane moves as one 16-byte load or store a lane and a
+// warp instruction covers 512 contiguous bytes. Results that cross rows
+// come from per-row summaries in shared memory, joined by one warp's scan
+// over the block's 512 rows between two barriers.
+constexpr int ROW_THREADS = 256;
+constexpr int ROW_WARPS = ROW_THREADS / 32;
+constexpr int LANE_POS = ROW / 32;               // positions a lane owns
+constexpr int ROWS_PER_LANE = NROWS / 32;        // rows a lane joins in a row scan
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(LANE_POS == 4, "a lane owns one int4 of each row");
 
 struct MinOp { __device__ int operator()(int a, int b) const { return a < b ? a : b; } };
 struct MaxOp { __device__ int operator()(int a, int b) const { return a > b ? a : b; } };
 struct SumOp { __device__ int operator()(int a, int b) const { return a + b; } };
 
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+// the combination of v over the lanes below this one (ident at lane 0)
 template <typename Op>
-__device__ int warp_inclusive_scan(int v, Op op) {
-  const int lane = threadIdx.x & 31;
+__device__ __forceinline__ int warp_exclusive_up(int v, Op op, int ident) {
+  const int lane = lane_id();
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    int o = __shfl_up_sync(0xffffffffu, v, d);
+    const int o = __shfl_up_sync(FULL, v, d);
     if (lane >= d) v = op(v, o);
   }
-  return v;
+  const int ex = __shfl_up_sync(FULL, v, 1);
+  return lane ? ex : ident;
 }
 
-// Exclusive scan over the block's threads in thread order. `wsum` holds
-// NWARPS ints of shared memory; `total` receives the combination of all.
+// the combination of v over the lanes above this one (ident at lane 31)
 template <typename Op>
-__device__ int block_exclusive_scan(int v, Op op, int ident, int* wsum, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = warp_inclusive_scan(v, op);
-  if (lane == 31) wsum[warp] = inc;
-  __syncthreads();
-  if (warp == 0) wsum[lane] = warp_inclusive_scan(wsum[lane], op);
-  __syncthreads();
-  int ex = __shfl_up_sync(0xffffffffu, inc, 1);
-  if (lane == 0) ex = ident;
-  int r = op(warp ? wsum[warp - 1] : ident, ex);
-  if (total) *total = wsum[NWARPS - 1];
-  __syncthreads();  // wsum may be reused at once
-  return r;
+__device__ __forceinline__ int warp_exclusive_down(int v, Op op, int ident) {
+  const int lane = lane_id();
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_down_sync(FULL, v, d);
+    if (lane + d < 32) v = op(v, o);
+  }
+  const int ex = __shfl_down_sync(FULL, v, 1);
+  return lane == 31 ? ident : ex;
 }
 
-// Exclusive scan in reverse thread order: thread t gets the combination of
-// the values of threads t+1 .. SCAN_THREADS-1.
+// Row scans, run by one whole warp over a table of NROWS ints in shared
+// memory, ROWS_PER_LANE consecutive rows a lane.
+// tab[r] <- the combination of tab[0 .. r); returns that of all rows.
 template <typename Op>
-__device__ int block_suffix_scan(int v, Op op, int ident, int* buf, int* wsum) {
-  const int t = threadIdx.x, rt = SCAN_THREADS - 1 - t;
-  buf[t] = v;
-  __syncthreads();
-  int r = block_exclusive_scan(buf[rt], op, ident, wsum, nullptr);
-  buf[rt] = r;  // every read of buf happened before the scan's barriers
-  __syncthreads();
-  int out = buf[t];
-  __syncthreads();
-  return out;
+__device__ int rows_exclusive_scan(int* tab, Op op, int ident) {
+  int* t = tab + lane_id() * ROWS_PER_LANE;
+  int acc = ident;
+  for (int i = 0; i < ROWS_PER_LANE; ++i) acc = op(acc, t[i]);
+  int ex = warp_exclusive_up(acc, op, ident);
+  const int total = __shfl_sync(FULL, op(ex, acc), 31);
+  for (int i = 0; i < ROWS_PER_LANE; ++i) {
+    const int v = t[i];
+    t[i] = ex;
+    ex = op(ex, v);
+  }
+  return total;
+}
+
+// tab[r] <- the combination of tab(r .. NROWS)
+template <typename Op>
+__device__ void rows_suffix_scan(int* tab, Op op, int ident) {
+  int* t = tab + lane_id() * ROWS_PER_LANE;
+  int acc = ident;
+  for (int i = 0; i < ROWS_PER_LANE; ++i) acc = op(acc, t[i]);
+  int ex = warp_exclusive_down(acc, op, ident);
+  for (int i = ROWS_PER_LANE - 1; i >= 0; --i) {
+    const int v = t[i];
+    t[i] = ex;
+    ex = op(ex, v);
+  }
+}
+
+__device__ __forceinline__ void load4(const int32_t* p, int v[LANE_POS]) {
+  const int4 x = *reinterpret_cast<const int4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+__device__ __forceinline__ void store4(int32_t* p, int a, int b, int c, int d) {
+  *reinterpret_cast<int4*>(p) = make_int4(a, b, c, d);
 }
 
 // ---------------------------------------------------------------------------
 // lz4_match: replaces tpu7z/ops/lz4_pallas.py:58 _kernel_a1
 //   (lz4_plane.phase0_words, phase1_nearest_offset, phase2_lengths)
 //
-// Bound: bytes. Per 64 KiB block it reads the block (64 KiB) and three
-// candidate planes (768 KiB) and writes mlen and moff (512 KiB): 1.34 MB,
-// 0.4 us at 3.35 TB/s. The run lengths are uncapped suffix runs that cross
-// rows, so each thread scans its span in reverse and a block-wide suffix
-// min of "next position where the run breaks" joins the spans. The block's
-// bytes go to shared memory only when the tier-A window is on (W > 0).
+// Bound: bytes. Per 64 KiB block it reads three candidate planes (768 KiB)
+// and writes mlen and moff (512 KiB): 1.31 MB, 0.67 GB per 32 MiB, 0.200 ms
+// at 3.35 TB/s. The run length at q is uncapped and crosses rows: it ends at
+// the first break (no same nonzero offset at q+1) at or after q. Pass 1
+// finds each row's first break per tier (a warp min); one warp's suffix
+// min over the rows gives every row the first break in a later row. Pass 2
+// reads the planes again, coalesced, and joins in-lane, in-row (a warp
+// suffix min) and later-row breaks; the tier choice and the caps follow.
+// Every plane moves as 16-byte lanes; reading the planes twice moves 1.6x
+// the bound's bytes.
+// With a tier-A window (W > 0, not the main path) the block's bytes go to
+// shared memory and both passes recompute the nearest offset.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t word_at(const uint8_t* sb, int q) {
@@ -125,78 +166,106 @@ __device__ int tier_a(const uint8_t* sb, int q, int W, int guard) {
 
 constexpr int NTIERS = 4;  // A, so4a, so4b, so8: a later tier needs a longer run
 
-__device__ __forceinline__ int tier_value(int k, const uint8_t* sb, const int32_t* s4a,
-                                          const int32_t* s4b, const int32_t* s8,
-                                          int q, int W, int guard) {
-  if (q >= BLOCK) return 0;
-  switch (k) {
-    case 0: return tier_a(sb, q, W, guard);
-    case 1: return s4a[q];
-    case 2: return s4b[q];
-    default: return s8[q];
-  }
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS)
+__global__ void __launch_bounds__(ROW_THREADS)
 lz4_match_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ ns,
                  const int32_t* __restrict__ so8, const int32_t* __restrict__ so4a,
                  const int32_t* __restrict__ so4b, int32_t* __restrict__ mlen_out,
                  int32_t* __restrict__ moff_out, int W) {
-  extern __shared__ uint8_t sb[];  // BLOCK + 4 bytes when W > 0
-  __shared__ int buf[SCAN_THREADS];
-  __shared__ int wsum[NWARPS];
-  const int b = blockIdx.x, t = threadIdx.x;
+  extern __shared__ __align__(16) uint8_t sb[];  // BLOCK + 4 bytes when W > 0
+  __shared__ int later_brk[NTIERS][NROWS];  // first break of each row, then of the later rows
+  const int b = blockIdx.x, lane = lane_id(), warp = threadIdx.x >> 5;
   const size_t base = (size_t)b * BLOCK;
   const int n = ns[b];
   const int guard = max(n - TAIL_GUARD, 0);
-  const int32_t* s8 = so8 + base;
-  const int32_t* s4a = so4a + base;
-  const int32_t* s4b = so4b + base;
+  const int32_t* plane[NTIERS] = {nullptr, so4a + base, so4b + base, so8 + base};
   if (W > 0) {
-    for (int i = t; i < BLOCK; i += SCAN_THREADS) sb[i] = blocks[base + i];
-    if (t < 4) sb[BLOCK + t] = 0;
-    __syncthreads();
+    const uint4* src = reinterpret_cast<const uint4*>(blocks + base);
+    for (int i = threadIdx.x; i < BLOCK / 16; i += ROW_THREADS)
+      reinterpret_cast<uint4*>(sb)[i] = src[i];
+    if (threadIdx.x < 4) sb[BLOCK + threadIdx.x] = 0;
   }
-  const int a = t * SPAN;
+  __syncthreads();
+  const int p0 = LANE_POS * lane;  // the lane's first position in its row
 
-  // pass 1: first run break in this span, per tier. diag(q) means q and
-  // q+1 carry the same nonzero offset; the run at q ends at the first q'
-  // >= q without diag (there is always one at BLOCK-1).
-  int first_brk[NTIERS];
+  // tier k at the lane's positions q0 .. q0+3 into v; returns tier k at q0+4
+  auto tier = [&](int k, int q0, int v[LANE_POS]) {
+    if (k == 0) {
 #pragma unroll
-  for (int k = 0; k < NTIERS; ++k) {
-    int nxt = tier_value(k, sb, s4a, s4b, s8, a + SPAN, W, guard);
-    int fb = BLOCK;
-    for (int q = a + SPAN - 1; q >= a; --q) {
-      int cur = tier_value(k, sb, s4a, s4b, s8, q, W, guard);
-      if (!(cur > 0 && nxt == cur)) fb = q;
-      nxt = cur;
+      for (int j = 0; j < LANE_POS; ++j) v[j] = tier_a(sb, q0 + j, W, guard);
+    } else {
+      load4(plane[k] + q0, v);
     }
-    first_brk[k] = fb;
-  }
-  int brk[NTIERS], nxt[NTIERS];
+    int nxt = __shfl_down_sync(FULL, v[0], 1);
+    if (lane == 31) {
+      const int q = q0 + LANE_POS;
+      nxt = q >= BLOCK ? 0 : k == 0 ? tier_a(sb, q, W, guard) : plane[k][q];
+    }
+    return nxt;
+  };
+  // bit j: a run breaks at q0+j (q0+j and the position after it do not
+  // carry the same nonzero offset)
+  auto breaks = [&](const int v[LANE_POS], int nxt) {
+    int m = 0;
 #pragma unroll
-  for (int k = 0; k < NTIERS; ++k) {
-    brk[k] = block_suffix_scan(first_brk[k], MinOp(), BLOCK, buf, wsum);
-    nxt[k] = tier_value(k, sb, s4a, s4b, s8, a + SPAN, W, guard);
-  }
+    for (int j = 0; j < LANE_POS; ++j) {
+      const int after = j + 1 < LANE_POS ? v[j + 1] : nxt;
+      if (!(v[j] > 0 && after == v[j])) m |= 1 << j;
+    }
+    return m;
+  };
+  auto first_break = [&](int brk, int q0) { return brk ? q0 + __ffs(brk) - 1 : BLOCK; };
 
-  // pass 2: lengths, tier choice, caps
-  for (int q = a + SPAN - 1; q >= a; --q) {
-    int ml = 0, mo = 0;
+  // pass 1: each row's first break, per tier
+  for (int r = warp; r < NROWS; r += ROW_WARPS) {
+    const int q0 = r * ROW + p0;
 #pragma unroll
     for (int k = 0; k < NTIERS; ++k) {
-      int cur = tier_value(k, sb, s4a, s4b, s8, q, W, guard);
-      if (!(cur > 0 && nxt[k] == cur)) brk[k] = q;
-      nxt[k] = cur;
-      int run = cur > 0 ? brk[k] - q + (k == NTIERS - 1 ? MIN_MATCH_B : MIN_MATCH) : 0;
-      if (k == 0 || run > ml) { ml = run; mo = cur; }
+      if (k == 0 && W == 0) continue;
+      int v[LANE_POS];
+      const int nxt = tier(k, q0, v);
+      const int row_first = __reduce_min_sync(FULL, first_break(breaks(v, nxt), q0));
+      if (lane == 0) later_brk[k][r] = row_first;
     }
-    ml = min(ml, max(n - END_LITERALS - q, 0));
-    ml = min(ml, ROW - (q & (ROW - 1)));
-    const bool ok = ml >= MIN_MATCH && q < guard && mo > 0;
-    mlen_out[base + q] = ok ? ml : 0;
-    moff_out[base + q] = ok ? mo : 0;
+  }
+  __syncthreads();
+  if (warp < NTIERS && (warp > 0 || W > 0)) rows_suffix_scan(later_brk[warp], MinOp(), BLOCK);
+  __syncthreads();
+
+  // pass 2: run lengths, the tier choice, the caps
+  for (int r = warp; r < NROWS; r += ROW_WARPS) {
+    const int q0 = r * ROW + p0;
+    int ml[LANE_POS] = {0, 0, 0, 0}, mo[LANE_POS] = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < NTIERS; ++k) {
+      if (k == 0 && W == 0) continue;
+      int v[LANE_POS];
+      const int nxt = tier(k, q0, v);
+      const int brk = breaks(v, nxt);
+      // the first break after the lane: in the lanes above, else a later row
+      int at = min(warp_exclusive_down(first_break(brk, q0), MinOp(), BLOCK),
+                   later_brk[k][r]);
+      const int kmin = k == NTIERS - 1 ? MIN_MATCH_B : MIN_MATCH;
+#pragma unroll
+      for (int j = LANE_POS - 1; j >= 0; --j) {
+        if ((brk >> j) & 1) at = q0 + j;
+        const int run = v[j] > 0 ? at - (q0 + j) + kmin : 0;
+        if (run > ml[j]) {
+          ml[j] = run;
+          mo[j] = v[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j) {
+      const int q = q0 + j;
+      int m = min(ml[j], max(n - END_LITERALS - q, 0));
+      m = min(m, ROW - (p0 + j));
+      const bool ok = m >= MIN_MATCH && q < guard && mo[j] > 0;
+      ml[j] = ok ? m : 0;
+      mo[j] = ok ? mo[j] : 0;
+    }
+    store4(mlen_out + base + q0, ml[0], ml[1], ml[2], ml[3]);
+    store4(moff_out + base + q0, mo[0], mo[1], mo[2], mo[3]);
   }
 }
 
@@ -248,158 +317,249 @@ lz4_parse_kernel(const int32_t* __restrict__ mlen, uint8_t* __restrict__ is_star
 // lz4_geometry: replaces tpu7z/ops/lz4_pallas.py:77 _kernel_a3
 //   (lz4_plane.phase4_geometry)
 //
-// Bound: bytes. Reads mlen, moff and is_start (576 KiB per block) and
-// writes 14 int32 planes (3.5 MiB): 4.1 MB, 1.2 us per block at 3.35 TB/s.
-// Nothing needs all 64K positions at once, so each thread keeps its span's
-// flags in 64-bit masks and the block joins spans with shared-memory row
-// tables (the odd-row merge), a suffix max (the next match start) and two
-// prefix sums (core_pos, gap_before) over span totals.
+// Bound: bytes. Per 64 KiB block it reads is_start (64 KiB) and mlen and
+// moff where a match starts, and writes 14 int32 planes (3.5 MiB): 1.93 GB
+// per 32 MiB, 0.577 ms at 3.35 TB/s. Nearly all of it is the stores, so
+// every plane is written once, as one 16-byte store a lane (512 contiguous
+// bytes a warp instruction), and nothing is read back. Four passes over the
+// rows, separated by barriers: (1) starts and covered (an in-row max scan
+// of each start's reach) as ballot masks in shared memory, and the row's
+// summaries for the odd-row continuation; (2) each row's first head;
+// (3) the row totals of glen and gap_here; (4) every plane. Between them
+// one warp joins the row summaries: the continuation, a suffix max (the
+// next head after each row) and two exclusive prefix sums (the bases of
+// core_pos and gap_before). Passes 2-4 read mlen again (coalesced, 256 KiB
+// a pass) rather than keep it on chip, and read moff only where a match
+// ends at its row end.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(SCAN_THREADS)
+// One position's sequence geometry: L (0 unless an anchor), mlc (0 unless
+// a head) and flags: bit 0 kept, 1 anchor, 2 head, bits 4-7 the length
+// nibble of the next head at or after the position.
+struct GeoPos {
+  int L, mlc, f;
+  __device__ bool kept() const { return f & 1; }
+  __device__ bool anchor() const { return (f >> 1) & 1; }
+  __device__ bool head() const { return (f >> 2) & 1; }
+  __device__ int nib() const { return f >> 4; }
+  __device__ int e() const { return L >= 15 ? (L - 15) / 255 + 1 : 0; }
+  __device__ bool ml_ext() const { return head() && mlc >= 15; }
+  __device__ int glen() const {
+    return (int)kept() + (anchor() ? 1 + min(e(), 1) : 0) + (head() ? 2 + (int)ml_ext() : 0);
+  }
+  __device__ int gap_here() const { return L >= LONG_LIT ? max(e() - 1, 0) : 0; }
+};
+
+__global__ void __launch_bounds__(ROW_THREADS)
 lz4_geometry_kernel(const int32_t* __restrict__ mlen, const int32_t* __restrict__ moff,
                     const uint8_t* __restrict__ is_start, const int32_t* __restrict__ ns,
                     int32_t* __restrict__ geo, int32_t* __restrict__ core_used,
                     int32_t* __restrict__ used) {
-  __shared__ int row_end_off[NROWS];   // offset of the match ending at the row end
-  __shared__ int row_cont_len[NROWS];  // continuation at lane 0 (odd rows)
-  __shared__ int row_cont_off[NROWS];
-  __shared__ int last_cov[SCAN_THREADS];
-  __shared__ int buf[SCAN_THREADS];
-  __shared__ int wsum[NWARPS];
-  const int b = blockIdx.x, t = threadIdx.x;
+  // bit l of [r][j]: position r*ROW + 4l + j starts a match / is covered
+  __shared__ uint32_t start_bits[NROWS][LANE_POS];
+  __shared__ uint32_t cov_bits[NROWS][LANE_POS];
+  __shared__ int end_off[NROWS];   // moff of the start whose match ends at the row end
+  // mlen and moff of a start at the row's first position; after the join,
+  // those of the odd-row continuation there, else 0
+  __shared__ int cont_len[NROWS];
+  __shared__ int cont_off[NROWS];
+  __shared__ int next_enc[NROWS];   // the row's first head's enc, then the later rows'
+  __shared__ int glen_base[NROWS];  // row totals, then their exclusive prefix sums
+  __shared__ int gap_base[NROWS];
+  __shared__ int totals[2];
+  const int b = blockIdx.x, lane = lane_id(), warp = threadIdx.x >> 5;
   const size_t base = (size_t)b * BLOCK;
   const int n = ns[b];
   const int32_t* ml = mlen + base;
   const int32_t* mo = moff + base;
   const uint8_t* is = is_start + base;
   int32_t* g = geo + (size_t)b * G_NPLANES * BLOCK;
-  const int a = t * SPAN;
-  const int r = a / ROW;
-  const int lane0 = a % ROW;  // 0 or 64
-  if (t < NROWS) {
-    row_end_off[t] = 0;
-    row_cont_len[t] = 0;
-    row_cont_off[t] = 0;
-  }
+  const int p0 = LANE_POS * lane;  // the lane's first position in its row
 
-  // pass 1: match starts and the span's furthest reach
-  uint64_t mstart = 0;
-  int span_reach = 0;
-  for (int i = 0; i < SPAN; ++i) {
-    const int q = a + i;
-    if (q < n && is[q]) {
-      mstart |= 1ull << i;
-      span_reach = max(span_reach, lane0 + i + ml[q]);
+  // pass 1: starts, covered (the in-row running max of each start's reach
+  // passes the position), the match ending at the row end, the first start
+  for (int r = warp; r < NROWS; r += ROW_WARPS) {
+    const int q0 = r * ROW + p0;
+    int m[LANE_POS];
+    load4(ml + q0, m);
+    const uint32_t s4 = *reinterpret_cast<const uint32_t*>(is + q0);
+    bool st[LANE_POS];
+    int reach[LANE_POS], acc = 0;
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j) {
+      st[j] = ((s4 >> (8 * j)) & 0xFF) && q0 + j < n;
+      if (st[j]) acc = max(acc, p0 + j + m[j]);
+      reach[j] = acc;
     }
-  }
-  // the first half of the row feeds the second (same warp: t even, t+1)
-  int reach = __shfl_up_sync(0xffffffffu, span_reach, 1);
-  if (lane0 == 0) reach = 0;
-  __syncthreads();  // row tables are initialised
-
-  // pass 2: covered (in-row running max of reach), matches ending at the row end
-  uint64_t covered = 0;
-  for (int i = 0; i < SPAN; ++i) {
-    const int q = a + i;
-    if ((mstart >> i) & 1) {
-      const int m = ml[q];
-      reach = max(reach, lane0 + i + m);
-      if (lane0 + i + m == ROW) row_end_off[r] = mo[q];
+    const int below = warp_exclusive_up(acc, MaxOp(), 0);
+    int eo = 0;
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j) {
+      const bool cov = q0 + j < n && p0 + j < max(below, reach[j]);
+      const uint32_t sbits = __ballot_sync(FULL, st[j]);
+      const uint32_t cbits = __ballot_sync(FULL, cov);
+      if (lane == 0) {
+        start_bits[r][j] = sbits;
+        cov_bits[r][j] = cbits;
+      }
+      if (st[j] && p0 + j + m[j] == ROW) eo = max(eo, mo[q0 + j]);
     }
-    if (q < n && lane0 + i < reach) covered |= 1ull << i;
-  }
-  last_cov[t] = (int)(covered >> (SPAN - 1));
-  __syncthreads();
-
-  // the odd-row continuation
-  bool cont = false;
-  if (lane0 == 0 && (r & 1) && (mstart & 1)) {
-    const int pe = row_end_off[r - 1];
-    if (pe > 0 && mo[a] == pe) {
-      cont = true;
-      row_cont_len[r] = ml[a];
-      row_cont_off[r] = mo[a];
+    eo = __reduce_max_sync(FULL, eo);
+    if (lane == 0) {
+      end_off[r] = eo;
+      cont_len[r] = st[0] ? m[0] : 0;
+      cont_off[r] = st[0] ? mo[q0] : 0;
     }
   }
   __syncthreads();
-  const uint64_t head = mstart & ~(uint64_t)cont;
-  const int next_cont_len = r + 1 < NROWS ? row_cont_len[r + 1] : 0;
-  const int next_cont_off = r + 1 < NROWS ? row_cont_off[r + 1] : 0;
 
-  // the merged match-length code of a head at position q = a + i
-  auto head_mlc = [&](int i) {
-    const int q = a + i;
-    const int m = ml[q];
-    int add = 0;
-    if (lane0 + i + m == ROW && next_cont_len > 0 && mo[q] == next_cont_off)
-      add = next_cont_len;
-    return m + add - MIN_MATCH;
+  // the odd-row continuation: a start at an odd row's first position with
+  // the offset of the previous row's match that ends at the row end
+  for (int r = threadIdx.x; r < NROWS; r += ROW_THREADS) {
+    const bool cont = (r & 1) && (start_bits[r][0] & 1) && end_off[r - 1] > 0 &&
+                      cont_off[r] == end_off[r - 1];
+    if (!cont) {
+      cont_len[r] = 0;
+      cont_off[r] = 0;
+    }
+  }
+  __syncthreads();
+
+  // The lane's heads (starts that are no continuation) in row r as bits,
+  // their merged match-length codes (a head ending at the row end absorbs
+  // the next row's continuation) and enc = (BLOCK - q) * 16 + min(mlc, 15).
+  auto heads = [&](int r, int q0, int mlc[LANE_POS], int enc[LANE_POS]) {
+    int m[LANE_POS];
+    load4(ml + q0, m);
+    const int ncl = r + 1 < NROWS ? cont_len[r + 1] : 0;
+    const int nco = r + 1 < NROWS ? cont_off[r + 1] : 0;
+    int hb = 0;
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j) {
+      const bool hd = ((start_bits[r][j] >> lane) & 1) &&
+                      !(j == 0 && lane == 0 && cont_off[r] > 0);
+      mlc[j] = 0;
+      enc[j] = 0;
+      if (hd) {
+        const bool add = p0 + j + m[j] == ROW && ncl > 0 && mo[q0 + j] == nco;
+        mlc[j] = m[j] + (add ? ncl : 0) - MIN_MATCH;
+        enc[j] = (BLOCK - (q0 + j)) * 16 + min(mlc[j], 15);
+        hb |= 1 << j;
+      }
+    }
+    return hb;
   };
-  auto enc_of = [&](int i, int mlc) { return (BLOCK - (a + i)) * 16 + min(mlc, 15); };
 
-  // next match start after this span: suffix max over the spans' first heads
-  const int first_enc = head ? enc_of(__ffsll((long long)head) - 1,
-                                      head_mlc(__ffsll((long long)head) - 1)) : 0;
-  int best = block_suffix_scan(first_enc, MaxOp(), 0, buf, wsum);
+  // pass 2: each row's first head (the largest enc)
+  for (int r = warp; r < NROWS; r += ROW_WARPS) {
+    int mlc[LANE_POS], enc[LANE_POS];
+    heads(r, r * ROW + p0, mlc, enc);
+    const int e = __reduce_max_sync(FULL, max(max(enc[0], enc[1]), max(enc[2], enc[3])));
+    if (lane == 0) next_enc[r] = e;
+  }
+  __syncthreads();
+  if (warp == 0) rows_suffix_scan(next_enc, MaxOp(), 0);
+  __syncthreads();
 
-  // pass 3 (reverse): anchors, tokens, lengths; per-position byte counts
-  int glen_sum = 0, gap_sum = 0;
-  for (int i = SPAN - 1; i >= 0; --i) {
-    const int q = a + i;
-    const bool in_range = q < n;
-    const bool hd = (head >> i) & 1;
-    const bool cov = (covered >> i) & 1;
-    const bool kept = in_range && !cov;
-    const int mlc = hd ? head_mlc(i) : 0;
-    if (hd) best = enc_of(i, mlc);
-    const bool has_next = best > 0;
-    const int next_start = min(has_next ? BLOCK - (best >> 4) : n, n);
-    const int next_nib = has_next ? (best & 15) : 0;
-    const bool prev_cov = i ? ((covered >> (i - 1)) & 1) : (t ? last_cov[t - 1] : 0);
-    const bool anchor = in_range && (q == 0 || (prev_cov && (hd || !cov)));
-    const int L = anchor ? next_start - q : 0;
-    const bool has_ext = anchor && L >= 15;
-    const int e = has_ext ? (L - 15) / 255 + 1 : 0;
-    const int gap255 = max(e - 1, 0);
-    const int litrem = has_ext ? (L - 15) % 255 : 0;
-    const bool long_run = anchor && L >= LONG_LIT;
-    const bool ml_ext = hd && mlc >= 15;
-    const int token = anchor ? (min(L, 15) << 4) | next_nib : 0;
-    const int inj_h = anchor ? 1 + min(e, 1) : 0;
-    const int inj_t = hd ? 2 + (int)ml_ext : 0;
-    const int glen = in_range ? (int)kept + inj_h + inj_t : 0;
-    const int gap_here = long_run ? gap255 : 0;
-    g[G_KEPT * BLOCK + q] = kept;
-    g[G_ANCHOR * BLOCK + q] = anchor;
-    g[G_MSTART * BLOCK + q] = hd;
-    g[G_TOKEN * BLOCK + q] = token;
-    g[G_LITREM * BLOCK + q] = litrem;
-    g[G_E * BLOCK + q] = e;
-    g[G_GAP255 * BLOCK + q] = gap255;
-    g[G_LONG_RUN * BLOCK + q] = long_run;
-    g[G_MLC * BLOCK + q] = mlc;
-    g[G_ML_EXT * BLOCK + q] = ml_ext;
-    g[G_GLEN * BLOCK + q] = glen;
-    g[G_GAP_HERE * BLOCK + q] = gap_here;
-    glen_sum += glen;
-    gap_sum += gap_here;
+  auto positions = [&](int r, int q0, GeoPos p[LANE_POS]) {
+    int mlc[LANE_POS], enc[LANE_POS];
+    const int hb = heads(r, q0, mlc, enc);
+    // the next head at or after each position: in the lane, in the lanes
+    // above, in a later row
+    int suf[LANE_POS], acc = 0;
+#pragma unroll
+    for (int j = LANE_POS - 1; j >= 0; --j) {
+      acc = max(acc, enc[j]);
+      suf[j] = acc;
+    }
+    const int later = max(warp_exclusive_down(acc, MaxOp(), 0), next_enc[r]);
+    bool prev_cov = lane ? (cov_bits[r][LANE_POS - 1] >> (lane - 1)) & 1
+                         : r > 0 && (cov_bits[r - 1][LANE_POS - 1] >> 31);
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j) {
+      const int q = q0 + j;
+      const bool in_range = q < n;
+      const bool hd = (hb >> j) & 1;
+      const bool cov = (cov_bits[r][j] >> lane) & 1;
+      const bool anchor = in_range && (q == 0 || (prev_cov && (hd || !cov)));
+      const int best = max(suf[j], later);
+      const int next_start = min(best > 0 ? BLOCK - (best >> 4) : n, n);
+      const int nib = best > 0 ? (best & 15) : 0;
+      p[j].L = anchor ? next_start - q : 0;
+      p[j].mlc = mlc[j];
+      p[j].f = (int)(in_range && !cov) | (int)anchor << 1 | (int)hd << 2 | nib << 4;
+      prev_cov = cov;
+    }
+  };
+
+  // pass 3: each row's glen and gap_here totals
+  for (int r = warp; r < NROWS; r += ROW_WARPS) {
+    GeoPos p[LANE_POS];
+    positions(r, r * ROW + p0, p);
+    int gl = 0, gp = 0;
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j) {
+      gl += p[j].glen();
+      gp += p[j].gap_here();
+    }
+    gl = __reduce_add_sync(FULL, gl);
+    gp = __reduce_add_sync(FULL, gp);
+    if (lane == 0) {
+      glen_base[r] = gl;
+      gap_base[r] = gp;
+    }
+  }
+  __syncthreads();
+  if (warp < 2) {
+    const int total = rows_exclusive_scan(warp ? gap_base : glen_base, SumOp(), 0);
+    if (lane == 0) totals[warp] = total;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    core_used[b] = totals[0];
+    used[b] = totals[0] + totals[1];
   }
 
-  // pass 4: exclusive prefix sums over the whole block
-  int core_total = 0, gap_total = 0;
-  int cp = block_exclusive_scan(glen_sum, SumOp(), 0, wsum, &core_total);
-  int gb = block_exclusive_scan(gap_sum, SumOp(), 0, wsum, &gap_total);
-  for (int i = 0; i < SPAN; ++i) {
-    const int q = a + i;
-    g[G_CORE_POS * BLOCK + q] = cp;
-    g[G_GAP_BEFORE * BLOCK + q] = gb;
-    cp += g[G_GLEN * BLOCK + q];
-    gb += g[G_GAP_HERE * BLOCK + q];
-  }
-  if (t == 0) {
-    core_used[b] = core_total;
-    used[b] = core_total + gap_total;
+  // pass 4: every plane; core_pos and gap_before from the row bases
+  for (int r = warp; r < NROWS; r += ROW_WARPS) {
+    const int q0 = r * ROW + p0;
+    GeoPos p[LANE_POS];
+    positions(r, q0, p);
+    int gl[LANE_POS], gp[LANE_POS], sl = 0, sp = 0;
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j) {
+      gl[j] = p[j].glen();
+      gp[j] = p[j].gap_here();
+      sl += gl[j];
+      sp += gp[j];
+    }
+    int cp[LANE_POS], gb[LANE_POS];
+    cp[0] = glen_base[r] + warp_exclusive_up(sl, SumOp(), 0);
+    gb[0] = gap_base[r] + warp_exclusive_up(sp, SumOp(), 0);
+#pragma unroll
+    for (int j = 1; j < LANE_POS; ++j) {
+      cp[j] = cp[j - 1] + gl[j - 1];
+      gb[j] = gb[j - 1] + gp[j - 1];
+    }
+    auto put = [&](int plane, auto f) {
+      store4(g + plane * BLOCK + q0, f(0), f(1), f(2), f(3));
+    };
+    put(G_KEPT, [&](int j) { return (int)p[j].kept(); });
+    put(G_ANCHOR, [&](int j) { return (int)p[j].anchor(); });
+    put(G_MSTART, [&](int j) { return (int)p[j].head(); });
+    put(G_TOKEN, [&](int j) {
+      return p[j].anchor() ? min(p[j].L, 15) << 4 | p[j].nib() : 0;
+    });
+    put(G_LITREM, [&](int j) { return p[j].L >= 15 ? (p[j].L - 15) % 255 : 0; });
+    put(G_E, [&](int j) { return p[j].e(); });
+    put(G_GAP255, [&](int j) { return max(p[j].e() - 1, 0); });
+    put(G_LONG_RUN, [&](int j) { return (int)(p[j].L >= LONG_LIT); });
+    put(G_MLC, [&](int j) { return p[j].mlc; });
+    put(G_ML_EXT, [&](int j) { return (int)p[j].ml_ext(); });
+    put(G_GLEN, [&](int j) { return gl[j]; });
+    put(G_CORE_POS, [&](int j) { return cp[j]; });
+    put(G_GAP_HERE, [&](int j) { return gp[j]; });
+    put(G_GAP_BEFORE, [&](int j) { return gb[j]; });
   }
 }
 
@@ -484,6 +644,22 @@ int lz4_geo_planes() { return G_NPLANES; }
 
 const char* lz4_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// What the compiler and the card make of a row kernel (0 = lz4_match, at
+// W = 0 as the main path launches it; 1 = lz4_geometry): registers and
+// local (spill) bytes a thread, threads and resident CTAs per SM.
+int lz4_row_kernel_info(int which, int* regs, int* local_bytes, int* threads,
+                        int* ctas_per_sm) {
+  const void* fn = which == 0 ? (const void*)lz4_match_kernel
+                              : (const void*)lz4_geometry_kernel;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *threads = ROW_THREADS;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, ROW_THREADS, 0);
+}
+
 int lz4_match_launch(const uint8_t* blocks, const int32_t* ns, const int32_t* so8,
                      const int32_t* so4a, const int32_t* so4b, int32_t* mlen,
                      int32_t* moff, int B, int W, cudaStream_t stream) {
@@ -492,8 +668,8 @@ int lz4_match_launch(const uint8_t* blocks, const int32_t* ns, const int32_t* so
       lz4_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK + 4);
   if (err != cudaSuccess) return (int)err;
   if (B > 0)
-    lz4_match_kernel<<<B, SCAN_THREADS, smem, stream>>>(blocks, ns, so8, so4a, so4b,
-                                                        mlen, moff, W);
+    lz4_match_kernel<<<B, ROW_THREADS, smem, stream>>>(blocks, ns, so8, so4a, so4b,
+                                                       mlen, moff, W);
   return (int)cudaGetLastError();
 }
 
@@ -507,8 +683,8 @@ int lz4_geometry_launch(const int32_t* mlen, const int32_t* moff, const uint8_t*
                         const int32_t* ns, int32_t* geo, int32_t* core_used,
                         int32_t* used, int B, cudaStream_t stream) {
   if (B > 0)
-    lz4_geometry_kernel<<<B, SCAN_THREADS, 0, stream>>>(mlen, moff, is_start, ns, geo,
-                                                        core_used, used);
+    lz4_geometry_kernel<<<B, ROW_THREADS, 0, stream>>>(mlen, moff, is_start, ns, geo,
+                                                       core_used, used);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,9 @@ bitonic_sort), followed by five kernels from csrc/lz4_stages.cu:
 Each stage has a wrapper here. On CPU tensors it runs the plain PyTorch
 version from lz4_plane.py; on CUDA tensors it launches its kernel, adds
 one to LAUNCHES[name], or raises. There is no fallback between the two.
+lz4_match and lz4_geometry (the row kernels) give each warp one 128-byte
+row and move every plane as 16-byte lanes, so their inputs must start on
+a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ BLOCK = P.BLOCK
 OUT_CAP = P.OUT_CAP
 KERNELS = ("lz4_match", "lz4_parse", "lz4_geometry", "lz4_emit_core",
            "lz4_expand")
+ROW_KERNELS = ("lz4_match", "lz4_geometry")  # the order of lz4_row_kernel_info
 
 # kernel launches made by the wrappers in this process, by kernel name
 LAUNCHES = {k: 0 for k in KERNELS}
@@ -66,6 +70,8 @@ def _library():
         lib.lz4_geo_planes.restype = ctypes.c_int
         lib.lz4_error_string.argtypes = [ctypes.c_int]
         lib.lz4_error_string.restype = ctypes.c_char_p
+        lib.lz4_row_kernel_info.argtypes = [_I] + 4 * [ctypes.POINTER(_I)]
+        lib.lz4_row_kernel_info.restype = ctypes.c_int
         if lib.lz4_geo_planes() != len(P.GEO_NAMES):
             raise RuntimeError("csrc/lz4_stages.cu and GEO_NAMES disagree")
         _lib = lib
@@ -84,6 +90,20 @@ def _launch(name, *args):
     LAUNCHES[name] += 1
 
 
+def row_kernel_info(name):
+    """What the compiler and the current card make of a row kernel:
+    registers and local (spill) bytes a thread, threads a CTA and resident
+    CTAs per SM (lz4_match as the main path launches it, W = 0)."""
+    lib = _library()
+    vals = [_I() for _ in range(4)]
+    err = lib.lz4_row_kernel_info(ROW_KERNELS.index(name),
+                                  *[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"{name}: {lib.lz4_error_string(err).decode()}")
+    return dict(zip(("regs", "local_bytes", "threads", "ctas_per_sm"),
+                    (v.value for v in vals)))
+
+
 def _check(t, name, dtype, shape, device):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
@@ -95,6 +115,13 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_aligned(*named):
+    """The row kernels load and store 16 bytes a lane."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must start on a 16-byte boundary")
 
 
 def _on_card(device):
@@ -146,6 +173,8 @@ def match_lengths(blocks, ns, so8, so4a, so4b, W: int = P.W_DEFAULT):
         raise ValueError(f"W={W} out of range")
     if not _on_card(dev):
         return P.match_lengths_ref(blocks, ns, so8, so4a, so4b, W)
+    _check_aligned(("blocks", blocks), ("so8", so8), ("so4a", so4a),
+                   ("so4b", so4b))
     mlen = torch.empty((B, BLOCK), dtype=torch.int32, device=dev)
     moff = torch.empty((B, BLOCK), dtype=torch.int32, device=dev)
     _launch("lz4_match", blocks, ns, so8, so4a, so4b, mlen, moff, B, W)
@@ -175,6 +204,7 @@ def geometry(mlen, moff, is_start, ns):
     _check_ns(ns, B, dev)
     if not _on_card(dev):
         return P.phase4_geometry(mlen, moff, is_start, ns)
+    _check_aligned(("mlen", mlen), ("moff", moff), ("is_start", is_start))
     planes = torch.empty((B, len(P.GEO_NAMES), BLOCK), dtype=torch.int32,
                          device=dev)
     core_used = torch.empty((B,), dtype=torch.int32, device=dev)
