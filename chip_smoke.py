@@ -14,7 +14,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      on random matcher keys with two payloads,
      fully random unique keys (N = 16384 and 65536, 0 and 3 payloads),
      ragged rows (N = 1000 and 12345), the corpus's tier-B and tier-B4
-     keys and the match finder's keys (sentinels, short rows);
+     keys and the match finder's keys (sentinels, short rows); and the
+     tile-parallel design's edges: a short last tile (N = 1, 4095, 4096,
+     4097, 12345, 65535) as int32 and as int64 with NaN-pattern float32
+     payloads, every begin_bit (0, 8, 16, 24) with 0 and 3 payloads, an
+     all-zero block's tier-B4 keys (one digit in every pass), and 1 and
+     513 rows;
   3. the main path: `shard_compress_lz4_device` over the 32 MiB corpus on
      the card, launch counts per kernel (two row sorts), the frame
      decoded by the port's decoder, and the compression ratio checked;
@@ -26,9 +31,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. times on the card (CUDA events, median of 5 after a warm-up) for the
      whole encoder, each kernel through its wrapper and as its launch
      alone (outputs preallocated, 10 launches between the events), its
-     plain version, the row sort beside `torch.sort`, `find_matches` with
-     either sort, and the parts of `compress_frame_device` (host clock);
-     registers and resident CTAs per SM of the two row kernels.
+     plain version, the row sort (as the path calls it with int64 keys,
+     with int32 keys, and as its launches alone) beside `torch.sort`,
+     `find_matches` with either sort, and the parts of
+     `compress_frame_device` (host clock); registers and resident CTAs
+     per SM of the two row kernels and of the sort's kernels, and each
+     sort kernel's device time from a torch.profiler trace.
 The line before the last is the per-kernel JSON; the last line is the
 device JSON. Imports nothing of JAX or tpu7z.
 """
@@ -262,7 +270,80 @@ def sort_inputs(dev, corpus_blocks, corpus_ns, P, M):
     for hashlog in (16, 12):
         _, hm, _ = M.hashes(corpus_blocks, short, hashlog)
         cases += [(f"find_matches_h{hashlog}", M.sort_key(hm), (), 16)]
+
+    # the tile-parallel design's edges: a short last tile and rows shorter
+    # than a tile, as int32 (keys >= 2**31 read negative) and as int64;
+    # float32 payloads whose bits include NaN patterns, moved untouched
+    def unique(rows, n):
+        c = rng.integers(0, 1 << 32, (rows, 1), dtype=np.uint64)
+        k = (np.arange(n, dtype=np.uint64) * ODD + c) % (1 << 32)
+        return rng.permuted(k, axis=1).astype(np.uint32)
+
+    def nan_floats(rows, n):
+        bits = rng.integers(0, 1 << 32, (rows, n), dtype=np.uint32)
+        nans = np.array([0x7FC00000, 0xFFC00001, 0x7F800001, 0xFFFFFFFF], np.uint32)
+        bits[:, ::3] = nans[rng.integers(0, 4, bits[:, ::3].shape)]
+        return torch.from_numpy(bits.view(np.float32)).to(dev)
+
+    for n in (1, 4095, 4096, 4097, 12345, 65535):
+        u = unique(3, n)
+        if n > 1 and not (u >= 1 << 31).any():
+            raise AssertionError("no key >= 2**31")
+        k32 = torch.from_numpy(u.view(np.int32)).to(dev)
+        k64 = torch.from_numpy(u.astype(np.int64)).to(dev)
+        cases += [(f"ragged_{n}_int32", k32, (), 0),
+                  (f"ragged_{n}_int64_nan_pay", k64, (nan_floats(3, n),), 16)]
+    # every begin_bit, so every parity of the ping-pong lands in out
+    u = unique(4, 20000)
+    k64 = torch.from_numpy(u.astype(np.int64)).to(dev)
+    k32 = torch.from_numpy(u.view(np.int32)).to(dev)
+    pays = (nan_floats(4, 20000), k32, torch.from_numpy(unique(4, 20000)).to(dev))
+    for bb in (0, 8, 16, 24):
+        cases += [("random_20000_int64_3pay", k64, pays, bb),
+                  ("random_20000_int32", k32, (), bb)]
+    # skewed digits: an all-zero block's tier-B4 keys share one hash, so a
+    # row's 65536 keys (16 tiles of 4096) have one digit in each pass
+    zero_words = P.phase0_words(torch.zeros((2, P.BLOCK), dtype=torch.uint8, device=dev))
+    zkey = P.tier_b4_key(zero_words)
+    if not bool((zkey >> 16 == zkey[0, 0] >> 16).all()):
+        raise AssertionError("an all-zero block's tier-B4 keys differ in their hash")
+    cases += [("zero_block_tier_b4", zkey, (), 16), ("zero_block_tier_b4", zkey, (), 0)]
+    # grid edges: one row, and one row more than the corpus
+    tb = P.tier_b_key(words)
+    cases += [("tier_b_1_row", tb[:1].contiguous(), (), 16),
+              ("tier_b_513_rows", torch.cat([tb, tb[:1]]), (), 16)]
     return cases
+
+
+def sort_kernel_times(S, key):
+    """Device time of each of the sort's kernels, from a torch.profiler
+    trace of ten launches as the main path makes them (int64 keys,
+    begin_bit 16): name -> {"launches", "ms" a launch, "gb_s"} with the
+    bytes each kernel must move for these keys (count reads the keys,
+    scatter reads and writes them, scan reads and writes the count
+    table). Empty where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    names = {"count_kernel<unsigned long>": "count_i64", "count_kernel<unsigned int>": "count_u32",
+             "scan_kernel": "scan", "scatter_kernel<0, unsigned long, unsigned int>":
+             "scatter_i64_u32", "scatter_kernel<0, unsigned int, unsigned long>": "scatter_u32_i64"}
+    outs, scratch = S.buffers(key, (), 16)
+    n = key.numel()
+    moved = {"count_i64": 8 * n, "count_u32": 4 * n, "scatter_i64_u32": 12 * n,
+             "scatter_u32_i64": 12 * n, "scan": 2 * 4 * scratch[1].numel()}
+    S._launch(key, (), outs, scratch, 16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            S._launch(key, (), outs, scratch, 16)
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0)
+        name = next((v for k, v in names.items() if k in e.key), None)
+        if name and us > 0:
+            ms = us / e.count / 1e3
+            times[name] = {"launches": e.count, "ms": ms, "gb_s": moved[name] / ms / 1e6}
+    return times
 
 
 def bits64(t):
@@ -451,16 +532,37 @@ def main() -> int:
         f"{cand_plain_ms:.3f} ms plain (torch.sort)")
     sort_row = {}
     for tier, key in (("tier_b", P.tier_b_key(words)), ("tier_b4", P.tier_b4_key(words))):
+        # as the path calls it (int64 keys through the wrapper), with int32
+        # keys through the wrapper, and as the launches alone (outputs and
+        # scratch preallocated)
         k32 = S.raw_bits(key)
-        ms = timed(lambda: S.sort_rows(k32, begin_bit=16))
         path_ms = timed(lambda: S.sort_rows(key, begin_bit=16))
-        plain_ms = timed(lambda: S.sort_rows_ref(k32, begin_bit=16))
+        int32_ms = timed(lambda: S.sort_rows(k32, begin_bit=16))
+        outs, scratch = S.buffers(key, (), 16)
+        kernel_ms = timed_launches(lambda: S._launch(key, (), outs, scratch, 16))
+        plain_ms = timed(lambda: S.sort_rows_ref(key, begin_bit=16))
         lib_ms = timed(lambda: torch.sort(key, dim=1, stable=True))
-        bound_ms = 2 * k32.numel() * 4 / HBM_BYTES_PER_S * 1e3
-        log(f"sort_rows {tier} keys {tuple(k32.shape)} u32, begin_bit=16: {ms:.3f} ms "
-            f"(as the path calls it, int64 in and out: {path_ms:.3f} ms), plain {plain_ms:.3f} ms, "
-            f"torch.sort (int64, stable) {lib_ms:.3f} ms, bound {bound_ms:.3f} ms")
-        sort_row[tier] = (ms, plain_ms, bound_ms, lib_ms)
+        # each key read once and written once, in its carrier
+        bound_ms = 2 * key.numel() * key.element_size() / HBM_BYTES_PER_S * 1e3
+        int32_bound_ms = 2 * k32.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        log(f"sort_rows {tier} keys {tuple(key.shape)}, begin_bit=16: as the path calls it "
+            f"(int64 in and out) {path_ms:.3f} ms, launches alone {kernel_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms; int32 keys {int32_ms:.3f} ms, bound {int32_bound_ms:.3f} ms; "
+            f"plain {plain_ms:.3f} ms, torch.sort (int64, stable) {lib_ms:.3f} ms")
+        sort_row[tier] = {"ms": path_ms, "path_ms": path_ms, "kernel_ms": kernel_ms,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": lib_ms,
+                          "int32_ms": int32_ms, "int32_bound_ms": int32_bound_ms}
+        del outs, scratch
+    sort_info = S.kernel_info()
+    sort_device_ms = sort_kernel_times(S, P.tier_b_key(words))
+    for name, info in sort_info.items():
+        dt = sort_device_ms.get(name)
+        dev_time = (f"{dt['ms']:.4f} ms a launch on the device ({dt['launches']} launches "
+                    f"traced), {dt['gb_s']:.1f} GB/s" if dt else "device time not measured")
+        log(f"sort_rows {name}: {info['regs']} registers a thread, {info['local_bytes']} local "
+            f"(spill) bytes, {info['shared_bytes']} shared bytes and {info['threads']} threads "
+            f"a CTA, {info['ctas_per_sm']} CTAs per SM; {dev_time}")
+        info["device"] = dt
     fm_ms = timed(lambda: M.find_matches(cb, cn))
     fm_plain_ms = timed(lambda: M.find_matches(cb, cn, sort=S.sort_rows_ref))
     log(f"find_matches ({cb.shape[0]} blocks): {fm_ms:.3f} ms with the row-sort kernel, "
@@ -504,12 +606,10 @@ def main() -> int:
                 f"{info['ctas_per_sm']} CTAs per SM")
             row.update(info)
         kernels.append(row)
-    ms, plain_ms, bound_ms, lib_ms = sort_row["tier_b"]
     kernels.append({"name": "sort_rows", "route": "cuda", "source": SORT_SOURCE,
                     "replaces": REPLACES["sort_rows"], "launches": launches["sort_rows"],
                     "max_abs_err": errs["sort_rows"], "equal": errs["sort_rows"] == 0,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": "bytes", "library_ms": lib_ms})
+                    **sort_row["tier_b"], "bound_by": "bytes", "kernels": sort_info})
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -126,6 +126,103 @@ def test_sort_rows_begin_bit_is_a_stable_sort_of_the_high_bits(begin_bit):
     assert np.array_equal(p.numpy(), np.take_along_axis(pay, order, 1))
 
 
+def _numpy_sorted(key_u32, begin_bit, *payloads):
+    order = np.argsort(key_u32 >> begin_bit, axis=1, kind="stable")
+    return [np.take_along_axis(a, order, 1) for a in (key_u32,) + payloads]
+
+
+# rows of one tile or less, a last tile of one key short, exact, or one key
+# over (tiles of 4096 keys on the card), and several tiles with a short end
+@pytest.mark.parametrize("begin_bit", [0, 16])
+@pytest.mark.parametrize("N", [1, 4095, 4096, 4097, 12345])
+def test_sort_rows_ragged_rows(N, begin_bit):
+    key = _random_unique_keys(3, N, seed=N)
+    pay = np.arange(key.size, dtype=np.int32).reshape(key.shape)
+    k, p = sort_cuda.sort_rows(_as(key, torch.int32), torch.from_numpy(pay),
+                               begin_bit=begin_bit)
+    want_k, want_p = _numpy_sorted(key, begin_bit, pay)
+    assert k.dtype == torch.int32 and p.dtype == torch.int32
+    assert np.array_equal(_u32(k), want_k)
+    assert np.array_equal(p.numpy(), want_p)
+
+
+@pytest.mark.parametrize("begin_bit", [0, 16])
+def test_sort_rows_row_of_one_digit(begin_bit):
+    """An all-zero block's tier-B4 keys share one hash: every key of the
+    row has the same digit in each pass over bits 16..31."""
+    from tpu7z_torch.ops import lz4_plane
+    words = lz4_plane.phase0_words(torch.zeros((2, lz4_plane.BLOCK), dtype=torch.uint8))
+    key = lz4_plane.tier_b4_key(words)
+    assert key.dtype == torch.int64
+    assert bool(((key >> 16) == (key[0, 0] >> 16)).all())
+    k, = sort_cuda.sort_rows(key, begin_bit=begin_bit)
+    assert k.dtype == torch.int64
+    assert np.array_equal(k.numpy(), _numpy_sorted(key.numpy(), begin_bit)[0])
+    assert torch.equal(k, key)   # already in position order
+
+
+@pytest.mark.parametrize("hashlog", [16, 12])
+def test_sort_rows_sentinel_tail(hashlog):
+    """The match finder's keys for short rows: min(h, 0xFFFF) << 16 | pos
+    fills each row's tail with one hash, which must stay last and in
+    position order."""
+    from tpu7z_torch.ops import match
+    rng = np.random.default_rng(hashlog)
+    blocks = torch.from_numpy(rng.integers(0, 256, (3, 65536), dtype=np.uint8))
+    lengths = torch.tensor([30000, 65536, 4100], dtype=torch.int32)
+    _, h, _ = match.hashes(blocks, lengths, hashlog)
+    key = match.sort_key(h)
+    k, = sort_cuda.sort_rows(key, begin_bit=16)
+    assert np.array_equal(k.numpy(), _numpy_sorted(key.numpy(), 16)[0])
+    order = k & 0xFFFF
+    for b, n in enumerate(lengths.tolist()):
+        tail = order[b, n - 3:] if n >= 3 else order[b]
+        assert torch.equal(tail, torch.arange(max(n - 3, 0), 65536))
+
+
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.uint32, torch.int64],
+                         ids=["int32", "uint32", "int64"])
+def test_sort_rows_keys_at_or_above_2_31(key_dtype):
+    """Keys >= 2**31 sort after the smaller ones (as int32 they read
+    negative; the order is that of the unsigned value)."""
+    rng = np.random.default_rng(31)
+    key = _random_unique_keys(2, 3000, seed=31)
+    key[:, ::2] |= np.uint32(0x80000000)
+    key[:, 1::2] &= np.uint32(0x7FFFFFFF)
+    key = np.stack([rng.permutation(np.unique(r))[:1000] for r in key])
+    k, = sort_cuda.sort_rows(_as(key, key_dtype))
+    got = _u32(k)
+    assert np.array_equal(got, np.sort(key, axis=1))
+    assert (got[:, -1] >= 1 << 31).all() and (got[:, 0] < 1 << 31).all()
+
+
+@pytest.mark.parametrize("begin_bit", [0, 16])
+def test_sort_rows_int64_and_int32_carriers_agree(begin_bit):
+    key = _matcher_keys(2, 20000, seed=9) ^ np.uint32(0x80000000)
+    pay = np.random.default_rng(9).integers(0, 1 << 32, key.shape, dtype=np.uint32)
+    got = {dt: sort_cuda.sort_rows(_as(key, dt), torch.from_numpy(pay).view(torch.float32),
+                                   begin_bit=begin_bit)
+           for dt in (torch.int32, torch.uint32, torch.int64)}
+    bits = {dt: (_u32(k), p.view(torch.int32).numpy().view(np.uint32))
+            for dt, (k, p) in got.items()}
+    want = _numpy_sorted(key, begin_bit, pay)
+    for dt, (k, p) in bits.items():
+        assert np.array_equal(k, want[0]) and np.array_equal(p, want[1]), dt
+    k64 = got[torch.int64][0]
+    assert k64.dtype == torch.int64 and bool((k64 >= 0).all() and (k64 < 1 << 32).all())
+
+
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.uint32, torch.int64],
+                         ids=["int32", "uint32", "int64"])
+@pytest.mark.parametrize("shape", [(0, 16), (3, 0)], ids=["B0", "N0"])
+def test_sort_rows_empty(shape, key_dtype):
+    key = torch.zeros(shape, dtype=key_dtype)
+    pay = torch.zeros(shape, dtype=torch.float32)
+    k, p = sort_cuda.sort_rows(key, pay, begin_bit=16)
+    assert (k.dtype, p.dtype) == (key_dtype, torch.float32)
+    assert tuple(k.shape) == shape and tuple(p.shape) == shape
+
+
 def _bad_calls():
     k = torch.zeros((2, 16), dtype=torch.int32)
     return {

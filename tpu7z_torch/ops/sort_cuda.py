@@ -15,8 +15,13 @@ Payloads are 32-bit tensors of any dtype (int32, uint32, float32), moved
 as raw bits.
 
 On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel, adds one to LAUNCHES["sort_rows"], or raises. There
-is no fallback between the two.
+launches the kernels or raises. There is no fallback between the two.
+The kernel reads and writes the key's own carrier: an int64 key is read
+as its low 32 bits and written back zero-extended, so no conversion runs
+around it. Each pass is three launches (count and scatter over the
+tiles of every row, a scan of each row's count table between them);
+LAUNCHES["sort_rows"] counts one per `sort_rows` call that launches
+them, whatever the number of passes.
 """
 
 from __future__ import annotations
@@ -31,6 +36,9 @@ MAX_N = 65536
 MAX_PAYLOADS = 3
 KEY_DTYPES = (torch.int32, torch.uint32, torch.int64)
 BEGIN_BITS = (0, 8, 16, 24)
+RADIX = 256
+# the kernels of the main path's sort, in the order of sort_kernel_info
+INFO_KERNELS = ("count_i64", "scan", "scatter_i64_u32", "count_u32", "scatter_u32_i64")
 
 # kernel launches made by the wrapper in this process
 LAUNCHES = {"sort_rows": 0}
@@ -48,16 +56,41 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load("sort")
-        lib.sort_rows_launch.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+        lib.sort_rows_launch.argtypes = [_P] * 13 + [_I] * 5 + [_P]
         lib.sort_rows_launch.restype = ctypes.c_int
         lib.sort_error_string.argtypes = [ctypes.c_int]
         lib.sort_error_string.restype = ctypes.c_char_p
         lib.sort_max_n.argtypes = []
         lib.sort_max_n.restype = ctypes.c_int
+        lib.sort_tile.argtypes = []
+        lib.sort_tile.restype = ctypes.c_int
+        lib.sort_kernel_info.argtypes = [_I] + 5 * [ctypes.POINTER(_I)]
+        lib.sort_kernel_info.restype = ctypes.c_int
         if lib.sort_max_n() != MAX_N:
             raise RuntimeError("csrc/sort.cu and MAX_N disagree")
         _lib = lib
     return _lib
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what}: {_library().sort_error_string(err).decode()}")
+
+
+def kernel_info():
+    """What the compiler and the current card make of the kernels of the
+    main path's sort (int64 keys, begin_bit 16, no payloads), in launch
+    order: name -> registers and local (spill) bytes a thread, static
+    shared bytes and threads a CTA, resident CTAs per SM."""
+    lib = _library()
+    info = {}
+    for which, name in enumerate(INFO_KERNELS):
+        vals = [ctypes.c_int() for _ in range(5)]
+        _raise_on(lib.sort_kernel_info(which, *[ctypes.byref(v) for v in vals]),
+                  f"sort_kernel_info({name})")
+        info[name] = dict(zip(("regs", "local_bytes", "shared_bytes", "threads",
+                               "ctas_per_sm"), (v.value for v in vals)))
+    return info
 
 
 def raw_bits(t):
@@ -122,22 +155,38 @@ def sort_rows(key, *payloads, begin_bit: int = 0):
         return sort_rows_ref(key, *payloads, begin_bit=begin_bit)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    outs, scratch = buffers(key, payloads, begin_bit)
+    if key.numel():
+        _launch(key, payloads, outs, scratch, begin_bit)
+    return tuple(outs)
+
+
+def buffers(key, payloads, begin_bit):
+    """What the kernels write: the outputs (the inputs' dtypes) and the
+    scratch (a u32 row set per operand when more than one pass runs, and
+    the count table of B * tiles * 256 u32)."""
     B, N = key.shape
-    ops = [raw_bits(key)] + [p.view(torch.int32) for p in payloads]
+    ops = (key,) + tuple(payloads)
     outs = [torch.empty_like(o) for o in ops]
     npass = (32 - begin_bit) // 8
-    tmps = [torch.empty_like(o) if npass > 1 else None for o in ops]
+    tmps = [torch.empty((B, N), dtype=torch.int32, device=key.device) if npass > 1 else None
+            for _ in ops]
+    tiles = -(-N // _library().sort_tile())
+    counts = torch.empty(B * tiles * RADIX, dtype=torch.int32, device=key.device)
+    return outs, (tmps, counts)
+
+
+def _launch(key, payloads, outs, scratch, begin_bit):
+    """The kernels' launches on the current stream, into buffers from
+    `buffers`; adds one to LAUNCHES["sort_rows"]."""
+    tmps, counts = scratch
+    B, N = key.shape
     args = []
-    for i in range(1 + MAX_PAYLOADS):
-        if i < len(ops):
-            args += [ops[i].data_ptr(), outs[i].data_ptr(),
-                     tmps[i].data_ptr() if tmps[i] is not None else None]
-        else:
-            args += [None, None, None]
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.sort_rows_launch(*args, len(payloads), B, N, begin_bit, stream)
-    if err != 0:
-        raise RuntimeError(f"sort_rows: {lib.sort_error_string(err).decode()}")
+    for o, out, tmp in zip((key,) + tuple(payloads), outs, tmps):
+        args += [o.data_ptr(), out.data_ptr(), tmp.data_ptr() if tmp is not None else None]
+    args += [None] * (3 * (1 + MAX_PAYLOADS) - len(args))
+    stream = torch.cuda.current_stream(key.device).cuda_stream
+    _raise_on(_library().sort_rows_launch(*args, counts.data_ptr(), len(payloads),
+                                          key.element_size(), B, N, begin_bit, stream),
+              "sort_rows")
     LAUNCHES["sort_rows"] += 1
-    return tuple(_from_bits(o, t.dtype) for o, t in zip(outs, (key,) + payloads))
