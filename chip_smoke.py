@@ -6,12 +6,12 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit; build the kernels from
      tpu7z_torch/csrc with nvcc, one process per source, all at once;
-  2. each of the five encoder kernels against its plain PyTorch version
+  2. each of the four encoder kernels against its plain PyTorch version
      on the card, exact equality, on test patterns, short blocks, the
-     edge blocks of the row kernels' joins, the first 2 MiB of the corpus
-     (W = 0 and 16) and the whole 32 MiB corpus (W = 0, the main path's
-     shapes); the row-sort kernel against its plain version, exactly,
-     on random matcher keys with two payloads,
+     edge blocks of the row kernels' joins and of lz4_emit's row spans,
+     the first 2 MiB of the corpus (W = 0 and 16) and the whole 32 MiB
+     corpus (W = 0, the main path's shapes); the row-sort kernel against
+     its plain version, exactly, on random matcher keys with two payloads,
      fully random unique keys (N = 16384 and 65536, 0 and 3 payloads),
      ragged rows (N = 1000 and 12345), the corpus's tier-B and tier-B4
      keys and the match finder's keys (sentinels, short rows); and the
@@ -19,24 +19,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      4097, 12345, 65535) as int32 and as int64 with NaN-pattern float32
      payloads, every begin_bit (0, 8, 16, 24) with 0 and 3 payloads, an
      all-zero block's tier-B4 keys (one digit in every pass), and 1 and
-     513 rows;
+     513 rows; rows longer than 65536 keys (N = 65537, 1 << 18, 1 << 22)
+     with duplicate keys and an int32 payload at every begin_bit, and the
+     match finder's keys for 4 MiB rows at hashlog 12, 20 and 31;
   3. the main path: `shard_compress_lz4_device` over the 32 MiB corpus on
-     the card, launch counts per kernel (two row sorts), the frame
-     decoded by the port's decoder, and the compression ratio checked;
+     the card, launch counts per kernel (each encoder kernel once, two
+     row sorts), the frame decoded by the port's decoder, and the
+     compression ratio checked;
   4. the match-finder path, each part with the counts set to 0 before it:
      `find_matches` over the corpus with the kernel against the same with
-     the plain sort; `compress_frame_device(corpus)` decoded with its
-     checksums verified; `shard_compress_lz4` over the first 2 MiB;
-     `entry()` against its CPU run;
+     the plain sort, as 512 rows of 64 KiB and as 8 rows of 4 MiB at
+     hashlog 20; `compress_frame_device(corpus)` at 64 KiB and 4 MiB
+     blocks, each decoded with its checksums verified;
+     `shard_compress_lz4` over the first 2 MiB; `entry()` against its
+     CPU run;
   5. times on the card (CUDA events, median of 5 after a warm-up) for the
      whole encoder, each kernel through its wrapper and as its launch
      alone (outputs preallocated, 10 launches between the events), its
      plain version, the row sort (as the path calls it with int64 keys,
-     with int32 keys, and as its launches alone) beside `torch.sort`,
-     `find_matches` with either sort, and the parts of
-     `compress_frame_device` (host clock); registers and resident CTAs
-     per SM of the two row kernels and of the sort's kernels, and each
-     sort kernel's device time from a torch.profiler trace.
+     with int32 keys, and as its launches alone; and at 8 rows of 4 MiB
+     with a payload, as `find_matches` calls it at hashlog 20) beside
+     `torch.sort`, the sort order `find_matches` takes at 64 KiB rows,
+     `find_matches` with either sort at both row lengths,
+     and the parts of `compress_frame_device` (host clock); registers,
+     spills and resident CTAs per SM of every encoder kernel and of the
+     sort's kernels, and each sort kernel's device time from a
+     torch.profiler trace.
 The line before the last is the per-kernel JSON; the last line is the
 device JSON. Imports nothing of JAX or tpu7z.
 """
@@ -63,8 +71,7 @@ REPLACES = {
     "lz4_match": "tpu7z/ops/lz4_pallas.py:58",
     "lz4_parse": "tpu7z/ops/lz4_pallas.py:72",
     "lz4_geometry": "tpu7z/ops/lz4_pallas.py:77",
-    "lz4_emit_core": "tpu7z/ops/lz4_pallas.py:108,120",
-    "lz4_expand": "tpu7z/ops/lz4_pallas.py:127",
+    "lz4_emit": "tpu7z/ops/lz4_pallas.py:108,120,127",
     "sort_rows": "tpu7z/ops/sort_pallas.py:76",
 }
 ODD = 2654435761
@@ -135,6 +142,48 @@ def patterns(block):
     return blocks, np.array([n for _, n in pats], np.int32)
 
 
+def emit_edges(block):
+    """Blocks on the edges of lz4_emit's row spans: a 128-byte period broken
+    by 400 random bytes at the last 4 positions of four rows (a long
+    literal run whose token ends a row, one at each lane offset); the same
+    period for 255 bytes, then random bytes to the end (a 255-run of 255
+    bytes after the last token of row 1); an all-random block (its 255-run
+    of 256 bytes on row 0); text of 0, 1, 13 and 1000 bytes (`used` ends
+    inside a 16-byte word in most of them)."""
+    rng = np.random.default_rng(9)
+    period = np.tile(rng.integers(0, 256, 128, dtype=np.uint8), block // 128)
+    row_ends = period.copy()
+    for i, row in enumerate((10, 50, 90, 130)):
+        at = row * 128 + 124 + i
+        row_ends[at:at + 400] = rng.integers(0, 256, 400, dtype=np.uint8)
+    spill = rng.integers(0, 256, block, dtype=np.uint8)
+    spill[:255] = period[:255]
+    words = [b"alpha ", b"beta ", b"gamma ", b"delta ", b"zstd ", b"tpu "]
+    text = np.frombuffer(b"".join(words[i] for i in rng.integers(0, 6, 400)), np.uint8)
+    blocks = [row_ends, spill, rng.integers(0, 256, block, dtype=np.uint8)]
+    ns = [block] * 3
+    for n in (0, 1, 13, 1000):
+        b = np.zeros(block, np.uint8)
+        b[:n] = text[:n]
+        blocks.append(b)
+        ns.append(n)
+    return np.stack(blocks), np.array(ns, np.int32)
+
+
+def check_emit_edges(geo):
+    """The edge blocks do what they are for: long runs start at each of the
+    last 4 positions of a row, one after row 1's last position, and `used`
+    ends inside a 16-byte word."""
+    lr = (geo["long_run"] > 0).nonzero().tolist()
+    ends = sorted(p % 128 for b, p in lr if b == 0)
+    if ends != [124, 125, 126, 127]:
+        raise AssertionError(f"emit_edges: long runs at row offsets {ends}, expected 124-127")
+    if [p for b, p in lr if b == 1] != [255]:
+        raise AssertionError("emit_edges: no long run after row 1's last position")
+    if not bool((geo["used"] % 16 != 0).any()):
+        raise AssertionError("emit_edges: every used ends on a 16-byte boundary")
+
+
 class Stages:
     """The plain chain's intermediates on the card (the expected output of
     every kernel) and, per kernel, its wrapper and its plain version as
@@ -147,8 +196,7 @@ class Stages:
         mlen, moff = P.match_lengths_ref(blocks, ns, *cand, W)
         st = P.phase3_parse(mlen)
         geo = P.phase4_geometry(mlen, moff, st, ns)
-        core = P.phase5_core(blocks, moff, geo)
-        out, used = P.phase6_expand(core, geo)
+        out, used = P.emit_ref(blocks, moff, geo)
         self.mlen, self.st, self.geo = mlen, st, geo
         names = P.GEO_NAMES + ("core_used", "used")
         # the kernels after geometry read its stacked planes
@@ -164,14 +212,12 @@ class Stages:
                              torch.empty_like(planes),
                              torch.empty_like(kgeo["core_used"]),
                              torch.empty_like(kgeo["used"]), B),
-            "lz4_emit_core": (blocks, moff, planes, kgeo["core_used"],
-                              torch.empty_like(core), B),
-            "lz4_expand": (core, planes, kgeo["used"],
-                           torch.empty_like(out), B),
+            "lz4_emit": (blocks, moff, planes, kgeo["used"],
+                         torch.empty_like(out), B),
         }
         self.want = {"lz4_match": [mlen, moff], "lz4_parse": [st],
                      "lz4_geometry": [geo[k] for k in names],
-                     "lz4_emit_core": [core], "lz4_expand": [out, used]}
+                     "lz4_emit": [out, used]}
         self.calls = {
             "lz4_match": (lambda: K.match_lengths(blocks, ns, *cand, W),
                           lambda: P.match_lengths_ref(blocks, ns, *cand, W),
@@ -181,11 +227,8 @@ class Stages:
             "lz4_geometry": (lambda: K.geometry(mlen, moff, st, ns),
                              lambda: P.phase4_geometry(mlen, moff, st, ns),
                              lambda g: [g[k] for k in names]),
-            "lz4_emit_core": (lambda: K.emit_core(blocks, moff, kgeo),
-                              lambda: P.phase5_core(blocks, moff, geo),
-                              lambda r: [r]),
-            "lz4_expand": (lambda: K.expand(core, kgeo),
-                           lambda: P.phase6_expand(core, geo), list),
+            "lz4_emit": (lambda: K.emit(blocks, moff, kgeo),
+                         lambda: P.emit_ref(blocks, moff, geo), list),
         }
 
     def bytes_moved(self):
@@ -196,8 +239,11 @@ class Stages:
         P, B = self.P, self.blocks.shape[0]
         BLOCK, ROW = P.BLOCK, P.ROW
         g = {k: self.geo[k] > 0 for k in ("glen", "anchor", "kept", "mstart",
-                                           "ml_ext", "long_run")}
+                                           "ml_ext")}
         e1 = g["anchor"] & (self.geo["e"] >= 1)
+        # kept is needed where a position or the one after it emits
+        kept_read = g["glen"].clone()
+        kept_read[:, :-1] |= g["glen"][:, 1:]
 
         def count(mask):
             return int(mask.sum())
@@ -220,17 +266,17 @@ class Stages:
             # is_start everywhere, mlen and moff at the starts; planes out
             "lz4_geometry": B * BLOCK + 4 * 2 * count(self.st) + scal
                             + 4 * len(P.GEO_NAMES) * B * BLOCK + 2 * scal,
-            # glen everywhere; the fields each sequence part needs; the core
-            "lz4_emit_core": 4 * B * BLOCK + 4 * 4 * count(g["glen"])
-                             + 4 * 2 * count(g["anchor"]) + 4 * count(e1)
-                             + count(g["kept"]) + 4 * 2 * count(g["mstart"])
-                             + 4 * count(g["ml_ext"]) + scal + B * P.CORE_CAP,
-            # glen everywhere; where, and how far, each position's bytes
-            # move; the live core bytes; the output
-            "lz4_expand": 4 * B * BLOCK + 4 * 3 * count(g["glen"])
-                          + 4 * count(g["long_run"])
-                          + int(self.geo["core_used"].sum()) + scal
-                          + B * P.OUT_CAP,
+            # glen everywhere and kept where it or the next position emits
+            # (the flags follow from the two); the field each sequence part
+            # needs (token at an anchor, litrem where e >= 1, the literal,
+            # moff at a match start, mlc where ml_ext); core_pos and
+            # gap_before at each row's start (the offsets within a row and
+            # the 255-run follow from glen); used; the output
+            "lz4_emit": 4 * B * BLOCK + 4 * count(kept_read)
+                        + 4 * count(g["anchor"]) + 4 * count(e1)
+                        + count(g["kept"]) + 4 * count(g["mstart"])
+                        + 4 * count(g["ml_ext"]) + 4 * 2 * B * P.NROWS
+                        + scal + B * P.OUT_CAP,
         }
 
 
@@ -240,7 +286,9 @@ def sort_inputs(dev, corpus_blocks, corpus_ns, P, M):
     fully random unique keys with 0 and 3 payloads; ragged rows; the
     corpus's tier-B and tier-B4 keys; the match finder's keys over the
     corpus with some rows cut short (sentinel tails), at hashlog 16 and
-    12."""
+    12; the edges of the tile-parallel design; rows over 65536 keys with
+    duplicate keys and a position payload; the match finder's keys for
+    the corpus as 8 rows of 4 MiB at hashlog 12, 20 and 31."""
     rng = np.random.default_rng(11)
     B, N = 64, P.BLOCK
     h = rng.integers(0, 1 << 16, (B, N), dtype=np.uint32)
@@ -267,9 +315,11 @@ def sort_inputs(dev, corpus_blocks, corpus_ns, P, M):
         cases += [(name, key, (), 16), (name, key, (), 0)]
     short = corpus_ns.clone()
     short[::7] = torch.arange(0, short.shape[0], 7, device=dev, dtype=torch.int32) * 97 % P.BLOCK
+    pos = torch.arange(P.BLOCK, dtype=torch.int32, device=dev).expand(short.shape[0], -1)
     for hashlog in (16, 12):
         _, hm, _ = M.hashes(corpus_blocks, short, hashlog)
-        cases += [(f"find_matches_h{hashlog}", M.sort_key(hm), (), 16)]
+        key, bb = M.hash_key(hm, hashlog)
+        cases += [(f"find_matches_h{hashlog}", key, (pos.contiguous(),), bb)]
 
     # the tile-parallel design's edges: a short last tile and rows shorter
     # than a tile, as int32 (keys >= 2**31 read negative) and as int64;
@@ -312,7 +362,48 @@ def sort_inputs(dev, corpus_blocks, corpus_ns, P, M):
     tb = P.tier_b_key(words)
     cases += [("tier_b_1_row", tb[:1].contiguous(), (), 16),
               ("tier_b_513_rows", torch.cat([tb, tb[:1]]), (), 16)]
+    # rows over 65536 keys (17, 64 and 1024 tiles) of duplicate keys (each
+    # row draws from 512 values): the position payload must keep its input
+    # order among equal keys; int32 keys at begin_bit 0 and 16, int64 at 8
+    # and 24
+    for n, rows in ((65537, 3), (1 << 18, 2), (1 << 22, 2)):
+        vals = rng.integers(0, 1 << 32, (rows, 512), dtype=np.uint32)
+        dup = np.take_along_axis(vals, rng.integers(0, 512, (rows, n)), 1)
+        k32 = torch.from_numpy(dup.view(np.int32)).to(dev)
+        k64 = torch.from_numpy(dup.astype(np.int64)).to(dev)
+        pos = torch.arange(n, dtype=torch.int32, device=dev).expand(rows, n).contiguous()
+        for bb in (0, 8, 16, 24):
+            cases.append((f"dup_{n}_pos", k32 if bb % 16 == 0 else k64, (pos,), bb))
+    # the match finder's keys for 4 MiB rows, one with a sentinel tail
+    big, big_n = rows_of_4mib(corpus_blocks)
+    big_n[-1] -= 12345
+    pos = torch.arange(big.shape[1], dtype=torch.int32, device=dev).expand(big.shape).contiguous()
+    for hashlog in (12, 20, 31):
+        _, hm, _ = M.hashes(big, big_n, hashlog)
+        key, bb = M.hash_key(hm, hashlog)
+        cases.append((f"find_matches_4MiB_h{hashlog}", key, (pos,), bb))
     return cases
+
+
+def rows_of_4mib(corpus_blocks):
+    """(blocks, lengths): the 32 MiB corpus as 8 rows of 4 MiB."""
+    big = corpus_blocks.reshape(8, -1)
+    return big, torch.full((8,), big.shape[1], dtype=torch.int32, device=big.device)
+
+
+def profile_kernels(fn, reps=10):
+    """Device time of each kernel `fn` launches, from a torch.profiler trace
+    of `reps` calls after a warm-up: kernel name -> (launches traced, ms a
+    launch). Empty where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.device_time_total / e.count / 1e3)
+            for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0}
 
 
 def sort_kernel_times(S, key):
@@ -322,7 +413,6 @@ def sort_kernel_times(S, key):
     bytes each kernel must move for these keys (count reads the keys,
     scatter reads and writes them, scan reads and writes the count
     table). Empty where the trace shows no device time."""
-    from torch.profiler import ProfilerActivity, profile
     names = {"count_kernel<unsigned long>": "count_i64", "count_kernel<unsigned int>": "count_u32",
              "scan_kernel": "scan", "scatter_kernel<0, unsigned long, unsigned int>":
              "scatter_i64_u32", "scatter_kernel<0, unsigned int, unsigned long>": "scatter_u32_i64"}
@@ -330,19 +420,11 @@ def sort_kernel_times(S, key):
     n = key.numel()
     moved = {"count_i64": 8 * n, "count_u32": 4 * n, "scatter_i64_u32": 12 * n,
              "scatter_u32_i64": 12 * n, "scan": 2 * 4 * scratch[1].numel()}
-    S._launch(key, (), outs, scratch, 16)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            S._launch(key, (), outs, scratch, 16)
-        torch.cuda.synchronize()
     times = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", 0)
-        name = next((v for k, v in names.items() if k in e.key), None)
-        if name and us > 0:
-            ms = us / e.count / 1e3
-            times[name] = {"launches": e.count, "ms": ms, "gb_s": moved[name] / ms / 1e6}
+    for full, (count, ms) in profile_kernels(lambda: S._launch(key, (), outs, scratch, 16)).items():
+        name = next((v for k, v in names.items() if k in full), None)
+        if name:
+            times[name] = {"launches": count, "ms": ms, "gb_s": moved[name] / ms / 1e6}
     return times
 
 
@@ -403,8 +485,10 @@ def main() -> int:
 
     # 2. every kernel against its plain version, exact
     pb, pn = patterns(P.BLOCK)
+    eb, en = emit_edges(P.BLOCK)
     cb, cn = sharded.split_blocks(corpus, dev)
     inputs = [("patterns", torch.from_numpy(pb).to(dev), torch.from_numpy(pn).to(dev)),
+              ("emit_edges", torch.from_numpy(eb).to(dev), torch.from_numpy(en).to(dev)),
               ("corpus_2MiB", cb[:32].contiguous(), cn[:32].contiguous())]
     runs = [(name, b, n, W) for name, b, n in inputs for W in (0, 16)]
     runs.append(("corpus_32MiB", cb, cn, 0))
@@ -412,6 +496,8 @@ def main() -> int:
     full = None
     for name, b, n, W in runs:
         s = Stages(P, K, b, n, W)
+        if name == "emit_edges":
+            check_emit_edges(s.geo)
         for kname, (kern, _plain, outs) in s.calls.items():
             got = outs(kern())
             torch.cuda.synchronize()
@@ -422,10 +508,11 @@ def main() -> int:
                                      f"{name} W={W}: max abs err {e}")
         out, used = K.encode_blocks(b, n, W)
         torch.cuda.synchronize()
-        want_out, want_used = s.want["lz4_expand"]
+        want_out, want_used = s.want["lz4_emit"]
         if not (torch.equal(used, want_used) and torch.equal(out, want_out)):
             raise AssertionError(f"encode_blocks differs from the plain chain on {name} W={W}")
-        log(f"check {name} W={W}: {b.shape[0]} blocks, 5 kernels and the chain equal")
+        log(f"check {name} W={W}: {b.shape[0]} blocks, {len(s.calls)} kernels and the chain "
+            f"equal")
         if name == "corpus_32MiB":
             full = s
     for k in K.KERNELS:
@@ -463,9 +550,9 @@ def main() -> int:
     launches = counts()
     log(f"main path: shard_compress_lz4_device({len(corpus)} bytes, W=0) -> {len(framed)} bytes "
         f"in {t_main:.2f} s (first call), launches {launches}")
-    for k, c in launches.items():
-        if c == 0:
-            raise AssertionError(f"main path never launched {k}")
+    for k in K.KERNELS:
+        if launches[k] != 1:
+            raise AssertionError(f"main path: {launches[k]} launches of {k}, expected 1")
     if launches["sort_rows"] != 2:
         raise AssertionError(f"main path: {launches['sort_rows']} row sorts, expected 2")
     t = time.time()
@@ -502,12 +589,26 @@ def main() -> int:
             raise AssertionError(f"find_matches {what} differs with the plain sort")
     log(f"find_matches ({cb.shape[0]} blocks) with the kernel equals it with the plain "
         f"sort: {int(fm[0].sum())} matches selected")
-    fm_frame = counted("compress_frame_device(corpus)", lambda: TB.compress_frame_device(corpus))
-    t = time.time()
-    if frame.decompress(fm_frame) != corpus:
-        raise AssertionError("compress_frame_device's frame does not decode to the input")
-    log(f"compress_frame_device: {len(fm_frame)} bytes, ratio {len(corpus) / len(fm_frame):.6f}; "
-        f"decoded with checksum and content size verified in {time.time() - t:.1f} s: equal")
+    big, big_n = rows_of_4mib(cb)
+    fm = counted("find_matches over the corpus as 8 rows of 4 MiB, hashlog 20",
+                 lambda: M.find_matches(big, big_n, hashlog=20))
+    fm_plain = M.find_matches(big, big_n, hashlog=20, sort=S.sort_rows_ref)
+    for g, w, what in zip(fm, fm_plain, ("selected", "mlen", "moff")):
+        if not torch.equal(g, w):
+            raise AssertionError(f"find_matches (4 MiB rows) {what} differs with the plain sort")
+    log(f"find_matches (8 rows of 4 MiB, hashlog 20) with the kernel equals it with the plain "
+        f"sort: {int(fm[0].sum())} matches selected")
+    del fm, fm_plain
+    for bs in (1 << 16, 1 << 22):
+        fm_frame = counted(f"compress_frame_device(corpus, block_size={bs})",
+                           lambda: TB.compress_frame_device(corpus, block_size=bs))
+        t = time.time()
+        if frame.decompress(fm_frame) != corpus:
+            raise AssertionError(f"compress_frame_device's frame (block_size={bs}) does not "
+                                 f"decode to the input")
+        log(f"compress_frame_device(block_size={bs}): {len(fm_frame)} bytes, ratio "
+            f"{len(corpus) / len(fm_frame):.6f}; decoded with checksum and content size "
+            f"verified in {time.time() - t:.1f} s: equal")
     head = corpus[:2 << 20]
     box = counted("shard_compress_lz4(2 MiB)", lambda: sharded.shard_compress_lz4(head))
     if frame.decompress(box) != head:
@@ -567,6 +668,42 @@ def main() -> int:
     fm_plain_ms = timed(lambda: M.find_matches(cb, cn, sort=S.sort_rows_ref))
     log(f"find_matches ({cb.shape[0]} blocks): {fm_ms:.3f} ms with the row-sort kernel, "
         f"{fm_plain_ms:.3f} ms with the plain sort")
+    _, h, _ = M.hashes(cb, cn, 16)
+    order_ms = timed(lambda: M.sort_order(h, 16))
+    log(f"sort_order as find_matches ({cb.shape[0]} blocks) calls it: int32 keys h << 15, "
+        f"int32 position payload, begin_bit 8: {order_ms:.3f} ms")
+    sort_row["tier_b"]["find_matches_order_ms"] = order_ms
+    # rows of 4 MiB: the sort as find_matches calls it at hashlog 20 (int32
+    # keys, an int32 position payload, begin_bit 8), and find_matches
+    _, h, _ = M.hashes(big, big_n, 20)
+    key, bb = M.hash_key(h, 20)
+    pos = torch.arange(big.shape[1], dtype=torch.int32, device=dev).expand(big.shape).contiguous()
+    long_ms = timed(lambda: S.sort_rows(key, pos, begin_bit=bb))
+    outs, scratch = S.buffers(key, (pos,), bb)
+    long_kernel_ms = timed_launches(lambda: S._launch(key, (pos,), outs, scratch, bb))
+    long_plain_ms = timed(lambda: S.sort_rows_ref(key, pos, begin_bit=bb))
+    # the unsigned key as int64; its bits below begin_bit are zero
+    k64 = key.to(torch.int64) & 0xFFFFFFFF
+    long_lib_ms = timed(lambda: torch.sort(k64, dim=1, stable=True))
+    long_bound_ms = 2 * 2 * key.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"sort_rows 8 rows of 4 MiB (match keys at hashlog 20, int32 position payload, "
+        f"begin_bit={bb}): {long_ms:.3f} ms through the wrapper, launches alone "
+        f"{long_kernel_ms:.3f} ms, bound {long_bound_ms:.3f} ms; plain {long_plain_ms:.3f} ms, "
+        f"torch.sort (int64, stable) {long_lib_ms:.3f} ms")
+    long_device = profile_kernels(lambda: S._launch(key, (pos,), outs, scratch, bb))
+    for name, (n, ms) in long_device.items():
+        log(f"sort_rows 8 rows of 4 MiB, {name}: {ms:.4f} ms a launch on the device "
+            f"({n} launches traced)")
+    del outs, scratch, h, key, k64, pos
+    sort_row["tier_b"]["long_rows"] = {
+        "shape": list(big.shape), "begin_bit": bb, "payloads": 1, "ms": long_ms,
+        "kernel_ms": long_kernel_ms, "plain_ms": long_plain_ms, "library_ms": long_lib_ms,
+        "bound_ms": long_bound_ms, "device_ms": {k: v[1] for k, v in long_device.items()}}
+    fm_big_ms = timed(lambda: M.find_matches(big, big_n, hashlog=20))
+    fm_big_plain_ms = timed(lambda: M.find_matches(big, big_n, hashlog=20,
+                                                   sort=S.sort_rows_ref))
+    log(f"find_matches (8 rows of 4 MiB, hashlog 20): {fm_big_ms:.3f} ms with the row-sort "
+        f"kernel, {fm_big_plain_ms:.3f} ms with the plain sort")
     blocks_np, lengths_np = TB.pad_blocks(corpus, P.BLOCK)
     t = time.perf_counter()
     sel, mlen, moff = TB.find_matches_host(blocks_np, lengths_np)
@@ -599,12 +736,11 @@ def main() -> int:
                "max_abs_err": errs[k], "equal": errs[k] == 0,
                "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
-        if k in K.ROW_KERNELS:
-            info = K.row_kernel_info(k)
-            log(f"{k}: {info['regs']} registers a thread, {info['local_bytes']} local "
-                f"(spill) bytes, {info['threads']} threads a CTA, "
-                f"{info['ctas_per_sm']} CTAs per SM")
-            row.update(info)
+        info = K.kernel_info(k)
+        log(f"{k}: {info['regs']} registers a thread, {info['local_bytes']} local "
+            f"(spill) bytes, {info['threads']} threads a CTA, "
+            f"{info['ctas_per_sm']} CTAs per SM")
+        row.update(info)
         kernels.append(row)
     kernels.append({"name": "sort_rows", "route": "cuda", "source": SORT_SOURCE,
                     "replaces": REPLACES["sort_rows"], "launches": launches["sort_rows"],

@@ -1,6 +1,7 @@
 """The port's device match-finder path against the JAX package: the match
-finder itself at every position, the .lz4 frame of the device backend,
-the skippable-frame container, the entry point, and the device encoder's
+finder itself at every position (hashlog 0-31, rows over 64 KiB), the
+.lz4 frame of the device backend (blocks over 64 KiB too), the
+skippable-frame container, the entry point, and the device encoder's
 frame without the sorted-neighbour tiers.
 
 On the CPU the match finder's sort is the plain `torch.sort`. All outputs
@@ -24,6 +25,8 @@ from tpu7z.parallel import shard_compress_lz4 as jax_shard  # noqa: E402
 from tpu7z.parallel.mesh import make_mesh  # noqa: E402
 from tpu7z.parallel.sharded import (  # noqa: E402
     shard_compress_lz4_device as jax_device_frame)
+from tpu7z.parallel.sharded import (  # noqa: E402
+    sharded_find_matches as jax_sharded_find_matches)
 from tpu7z_torch.containers import skippable  # noqa: E402
 from tpu7z_torch.entry import entry  # noqa: E402
 from tpu7z_torch.models.lz4 import frame as tframe  # noqa: E402
@@ -50,8 +53,8 @@ def _batches():
     """(blocks, lengths) batches: the entry point's sample, two 64 KiB
     corpus blocks (the second short), and one 16 KiB batch of an empty,
     a random, an all-zero and a short text block, and a block whose last
-    in-range word hashes to 0xFFFF (at hashlog 16 the sort key clips the
-    sentinel hash to that value)."""
+    in-range word hashes to 0xFFFF (at hashlog 16 the largest hash, just
+    below the sentinel)."""
     _, (eb, el) = __graft_entry__.entry()
     two = torch_backend.pad_blocks(make_corpus(BLOCK + 40000), BLOCK)
     rng = np.random.default_rng(4)
@@ -75,7 +78,7 @@ def batches():
     return _batches()
 
 
-@pytest.mark.parametrize("hashlog", [16, 12])
+@pytest.mark.parametrize("hashlog", [16, 12, 0, 17, 20, 24, 31])
 @pytest.mark.parametrize("name", ["entry", "two_64k_one_short",
                                   "empty_random_zero_short"])
 def test_find_matches_equals_jax_everywhere(batches, name, hashlog):
@@ -89,17 +92,56 @@ def test_find_matches_equals_jax_everywhere(batches, name, hashlog):
         assert np.array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("kw", [{"hashlog": 17}, {"hashlog": 0}])
+@pytest.mark.parametrize("kw", [{"hashlog": 32}, {"hashlog": -1}])
 def test_find_matches_rejects_hashlog(kw):
-    with pytest.raises(ValueError):
+    """hashlog runs 0-31: at 32 the sentinel hash 1 << 32 no longer fits
+    the u32 hash."""
+    with pytest.raises(ValueError, match="hashlog"):
         match.find_matches(torch.zeros((1, 64), dtype=torch.uint8),
                            torch.tensor([64], dtype=torch.int32), **kw)
 
 
 def test_find_matches_rejects_rows_over_64k():
-    with pytest.raises(ValueError):
-        match.find_matches(torch.zeros((1, BLOCK + 1), dtype=torch.uint8),
-                           torch.tensor([BLOCK], dtype=torch.int32))
+    """Rows over 64 KiB are taken now (test_find_matches_long_rows_equals_jax);
+    what is still refused is a batch that is not 2-D."""
+    for blocks in (torch.zeros(BLOCK + 1, dtype=torch.uint8),
+                   torch.zeros((1, 2, BLOCK + 1), dtype=torch.uint8)):
+        with pytest.raises(ValueError, match="blocks"):
+            match.find_matches(blocks, torch.tensor([BLOCK], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("hashlog", [12, 20])
+@pytest.mark.parametrize("N", [1 << 17, 1 << 18])
+def test_find_matches_long_rows_equals_jax(N, hashlog):
+    """Rows of 128 and 256 KiB (the row sort's key then carries the hash
+    alone, with the position as its payload): one whole row and one cut
+    short, every position equal to tpu7z's."""
+    rows = 2 if N == 1 << 17 else 1
+    blocks = np.frombuffer(make_corpus(rows * N), np.uint8).reshape(rows, N)
+    lengths = np.array([N, N - 5000][:rows], np.int32)
+    want = match_jax.find_matches(jnp.asarray(blocks), jnp.asarray(lengths),
+                                  hashlog=hashlog)
+    got = match.find_matches(torch.from_numpy(blocks.copy()),
+                             torch.from_numpy(lengths), hashlog=hashlog)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    assert int(got[0].sum()) > 0
+
+
+@pytest.mark.parametrize("hashlog", [0, 12, 16, 20, 31])
+def test_sort_order_is_a_stable_argsort_of_the_hash(hashlog):
+    """The order the match finder takes from the row sort, at rows of
+    64 KiB (hashlog <= 16) and just over, is numpy's stable argsort of h,
+    sentinel tail last."""
+    N = BLOCK if hashlog <= 16 else BLOCK + 3
+    blocks = torch.from_numpy(np.frombuffer(make_corpus(2 * N), np.uint8)
+                              .reshape(2, N).copy())
+    lengths = torch.tensor([N, 30000], dtype=torch.int32)
+    _, h, _ = match.hashes(blocks, lengths, hashlog)
+    order = match.sort_order(h, hashlog)
+    assert np.array_equal(order.numpy(),
+                          np.argsort(h.numpy(), axis=1, kind="stable"))
+    assert torch.equal(order[1, -(N - 29997):], torch.arange(29997, N))
 
 
 SIZES = {"empty": 0, "100000": 100000, "three_blocks_short_tail": 3 * BLOCK + 1234}
@@ -114,10 +156,21 @@ def test_compress_frame_device_equals_jax_and_decodes(size):
     assert tframe.decompress(got) == data
 
 
-@pytest.mark.parametrize("block_size", [1 << 14, 1 << 16])
+def test_compress_frame_device_256k_blocks_equals_jax_and_decodes():
+    """A frame of 256 KiB blocks: one whole, one short."""
+    data = make_corpus(400000)
+    got = torch_backend.compress_frame_device(data, block_size=1 << 18,
+                                              device="cpu")
+    assert got == jax_backend.compress_frame_device(data, block_size=1 << 18)
+    assert len(list(tframe.iter_blocks(got))) == 2
+    assert jframe.decompress(got, verify_checksums=True) == data
+    assert tframe.decompress(got) == data
+
+
+@pytest.mark.parametrize("block_size", [1 << 14, 1 << 16, 1 << 17])
 def test_shard_compress_lz4_equals_jax_and_decodes(block_size):
-    data = make_corpus(100000)
-    got = sharded.shard_compress_lz4(data, block_size, device="cpu")
+    data = make_corpus(100000) if block_size < 1 << 17 else make_corpus(300000)
+    got = sharded.shard_compress_lz4(data, block_size=block_size, device="cpu")
     assert got == jax_shard(data, mesh=make_mesh(1), block_size=block_size)
     spans = skippable.parse_container(got)
     assert spans == jskippable.parse_container(got)
@@ -135,6 +188,27 @@ def test_sharded_find_matches_covered_bytes():
     for g, w in zip((sel, mlen, moff), want):
         assert np.array_equal(g, np.asarray(w))
     assert covered == int(np.where(sel, mlen, 0).sum()) > 0
+
+
+def test_sharded_find_matches_long_rows_and_hashlog_equal_jax():
+    blocks, lengths = torch_backend.pad_blocks(make_corpus(200000), 1 << 17)
+    got = sharded.sharded_find_matches(blocks, lengths, hashlog=20,
+                                       device="cpu")
+    want = jax_sharded_find_matches(blocks, lengths, make_mesh(1), hashlog=20)
+    for g, w in zip(got[:3], want[:3]):
+        assert np.array_equal(g, w)
+    assert got[3] == want[3] > 0
+
+
+def test_sharded_entry_points_take_no_positional_options():
+    """tpu7z's third and second parameters are a mesh; the port's options
+    after the data are keyword-only, so a positional call binds alike in
+    both packages or not at all."""
+    blocks, lengths = torch_backend.pad_blocks(b"abcd" * 100, 1 << 16)
+    with pytest.raises(TypeError):
+        sharded.sharded_find_matches(blocks, lengths, 16)
+    with pytest.raises(TypeError):
+        sharded.shard_compress_lz4(b"abcd" * 100, 1 << 16)
 
 
 def test_entry_equals_jax_entry():

@@ -163,21 +163,23 @@ def test_sort_rows_row_of_one_digit(begin_bit):
 
 @pytest.mark.parametrize("hashlog", [16, 12])
 def test_sort_rows_sentinel_tail(hashlog):
-    """The match finder's keys for short rows: min(h, 0xFFFF) << 16 | pos
-    fills each row's tail with one hash, which must stay last and in
-    position order."""
+    """The match finder's keys for short rows: h << (31 - hashlog) with the
+    position as payload fills each row's tail with the sentinel hash,
+    which must stay last and in position order."""
     from tpu7z_torch.ops import match
     rng = np.random.default_rng(hashlog)
     blocks = torch.from_numpy(rng.integers(0, 256, (3, 65536), dtype=np.uint8))
     lengths = torch.tensor([30000, 65536, 4100], dtype=torch.int32)
     _, h, _ = match.hashes(blocks, lengths, hashlog)
-    key = match.sort_key(h)
-    k, = sort_cuda.sort_rows(key, begin_bit=16)
-    assert np.array_equal(k.numpy(), _numpy_sorted(key.numpy(), 16)[0])
-    order = k & 0xFFFF
+    key, begin_bit = match.hash_key(h, hashlog)
+    pos = torch.arange(65536, dtype=torch.int32).expand(3, 65536).contiguous()
+    k, order = sort_cuda.sort_rows(key, pos, begin_bit=begin_bit)
+    want_k, want_p = _numpy_sorted(key.numpy().view(np.uint32), begin_bit, pos.numpy())
+    assert np.array_equal(k.numpy().view(np.uint32), want_k)
+    assert np.array_equal(order.numpy(), want_p)
     for b, n in enumerate(lengths.tolist()):
         tail = order[b, n - 3:] if n >= 3 else order[b]
-        assert torch.equal(tail, torch.arange(max(n - 3, 0), 65536))
+        assert torch.equal(tail, torch.arange(max(n - 3, 0), 65536, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("key_dtype", [torch.int32, torch.uint32, torch.int64],
@@ -212,6 +214,28 @@ def test_sort_rows_int64_and_int32_carriers_agree(begin_bit):
     assert k64.dtype == torch.int64 and bool((k64 >= 0).all() and (k64 < 1 << 32).all())
 
 
+@pytest.mark.parametrize("begin_bit", [0, 8, 16, 24])
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("N", [5000, 65537, 1 << 17])
+def test_sort_rows_is_stable_on_duplicate_keys(N, key_dtype, begin_bit):
+    """Rows of any length, keys drawn from 300 values a row: equal keys keep
+    their input order, so the position payload rises within each run of
+    equal keys (on the card, rows over 65536 keys span 17 and 32 tiles)."""
+    rng = np.random.default_rng(N + begin_bit)
+    vals = rng.integers(0, 1 << 32, (2, 300), dtype=np.uint32)
+    key = np.take_along_axis(vals, rng.integers(0, 300, (2, N)), 1)
+    pos = np.broadcast_to(np.arange(N, dtype=np.int32), key.shape).copy()
+    k, p = sort_cuda.sort_rows(_as(key, key_dtype), torch.from_numpy(pos),
+                               begin_bit=begin_bit)
+    want_k, want_p = _numpy_sorted(key, begin_bit, pos)
+    assert k.dtype == key_dtype and p.dtype == torch.int32
+    assert np.array_equal(_u32(k), want_k)
+    assert np.array_equal(p.numpy(), want_p)
+    hi = want_k >> begin_bit
+    run = hi[:, 1:] == hi[:, :-1]
+    assert run.any() and (np.diff(want_p, axis=1)[run] > 0).all()
+
+
 @pytest.mark.parametrize("key_dtype", [torch.int32, torch.uint32, torch.int64],
                          ids=["int32", "uint32", "int64"])
 @pytest.mark.parametrize("shape", [(0, 16), (3, 0)], ids=["B0", "N0"])
@@ -226,7 +250,7 @@ def test_sort_rows_empty(shape, key_dtype):
 def _bad_calls():
     k = torch.zeros((2, 16), dtype=torch.int32)
     return {
-        "N_over_65536": ((torch.zeros((1, 65537), dtype=torch.int32),), {}, ValueError),
+        "key_3d": ((torch.zeros((1, 2, 16), dtype=torch.int32),), {}, ValueError),
         "key_int16": ((k.to(torch.int16),), {}, TypeError),
         "key_float32": ((k.to(torch.float32),), {}, TypeError),
         "key_1d": ((k[0],), {}, ValueError),

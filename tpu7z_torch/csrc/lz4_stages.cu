@@ -1,8 +1,8 @@
 // Hand-written Hopper kernels of the LZ4 device block encoder.
 //
-// Five kernels replace the six Pallas TPU kernels of tpu7z/ops/lz4_pallas.py
-// (a1, a2, a3, b1+b2, c). Each works on a batch of B independent 64 KiB
-// blocks; the plain PyTorch version of every kernel is in
+// Four kernels replace the six Pallas TPU kernels of tpu7z/ops/lz4_pallas.py
+// (a1, a2, a3, and b1+b2+c as one). Each works on a batch of B independent
+// 64 KiB blocks; the plain PyTorch version of every kernel is in
 // tpu7z_torch/ops/lz4_plane.py and gives the same integers.
 //
 // Built by tpu7z_torch/ops/_build.py with
@@ -18,7 +18,6 @@
 //   mlen/moff(B, BLOCK)  int32
 //   is_start (B, BLOCK)  uint8     0/1
 //   geo      (B, G_NPLANES, BLOCK) int32, planes in GeoPlane order
-//   core     (B, CORE_CAP) uint8
 //   out      (B, OUT_CAP)  uint8
 
 #include <cstdint>
@@ -29,7 +28,6 @@ namespace {
 constexpr int ROW = 128;
 constexpr int NROWS = 512;
 constexpr int BLOCK = ROW * NROWS;
-constexpr int CORE_CAP = 672 * ROW;
 constexpr int OUT_CAP = 676 * ROW;
 constexpr int MIN_MATCH = 4;
 constexpr int MIN_MATCH_B = 8;
@@ -564,72 +562,195 @@ lz4_geometry_kernel(const int32_t* __restrict__ mlen, const int32_t* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// lz4_emit_core: replaces tpu7z/ops/lz4_pallas.py:108 _kernel_b1 and
-//   :120 _kernel_b2 (lz4_plane.phase5_core)
+// lz4_emit: replaces tpu7z/ops/lz4_pallas.py:108 _kernel_b1, :120 _kernel_b2
+//   and :127 _kernel_c (lz4_plane.emit_ref: phase6_expand of phase5_core)
 //
-// Bound: bytes. Reads glen everywhere and, where a position emits bytes,
-// the block, moff and up to nine more geometry planes (at most 2.8 MiB per
-// block), and writes the core (84 KiB): at most 3.0 MB, 0.9 us per block
-// at 3.35 TB/s. The TPU built the core with a 16-step merge pyramid because it
-// could not scatter; here each position writes its own glen bytes at
-// core_pos, so neighbouring threads write neighbouring bytes.
+// Writes each block's LZ4 bytes straight into out; no core buffer exists.
+// Position p's bytes run from o(p) = core_pos + gap_before: the token, a
+// long run's 255-bytes, litrem, the literal, offset lo and hi, the
+// match-length extension.
+//
+// One warp takes one 128-position row, 4 positions a lane; glen and kept
+// arrive as one 16-byte load a lane each (512 contiguous bytes a warp
+// instruction). Which bytes a position writes follows from them, by the
+// definitions of lz4_plane.phase4_geometry, so anchor, mstart, e and
+// ml_ext are never read:
+//   - a position emits where glen > 0, and is then either kept or a match
+//     start (mstart; matches cover their start);
+//   - it is an anchor where it emits and is position 0 or follows a
+//     position that is not kept;
+//   - glen = kept + (1 + [e >= 1] at an anchor) + (2 + ml_ext at a match
+//     start), and an anchor at a match start holds no literals (e = 0):
+//     so e >= 1 where a kept anchor has glen 3, and ml_ext where a match
+//     start has glen 3, or 4 at an anchor.
+// The other inputs are read as the lane's 16 bytes only where one of its
+// positions needs them: token at an anchor, litrem where e >= 1, moff at a
+// match start, mlc where ml_ext, the 4 block bytes where kept.
+//
+// o(p) is the row's first offset S (core_pos + gap_before, read once a
+// row), plus the glen of the row's positions before p (a warp scan), plus
+// the row's 255-run where that comes before p. A long run needs 270
+// literals, so a row holds at most one, after its last anchor's token, and
+// its length is what the row's span holds beyond its glen: E - S - sum of
+// glen, E being the next row's S (used after the last row).
+//
+// A row's bytes are the span [S, E): at most 4 bytes a position (an
+// anchor at a match start holds no literals, one before literals no
+// match) and 256 bytes of 255, 768 bytes. The warp builds the span in
+// shared memory at its offset within its first 16-byte word, the whole
+// warp filling the 255-run, then stores the span's whole words as 16-byte
+// stores and its ragged ends byte by byte, so rows meet without two
+// writing one byte. The CTAs of a block zero [used, OUT_CAP), 16 bytes a
+// store past used's own word.
+//
+// Bound: bytes. glen everywhere, kept where it or the next position
+// emits, the field each sequence part needs where it emits, two offsets a
+// row, used, and out written (86.5 KiB a block); chip_smoke.py
+// (Stages.bytes_moved) counts it for each run's data.
 // ---------------------------------------------------------------------------
 
-constexpr int POS_THREADS = 256;
+constexpr int EMIT_WARPS = 8;                         // rows a CTA, one a warp
+constexpr int EMIT_THREADS = 32 * EMIT_WARPS;
+constexpr int EMIT_CTAS_PER_BLOCK = NROWS / EMIT_WARPS;
+constexpr int EMIT_CTAS_PER_SM = 5;  // 48 registers a thread; at 6 it spills
+constexpr int SPAN_CAP = 1024;                        // staging bytes a warp
+static_assert(4 * ROW + 256 + 15 <= SPAN_CAP, "a row's span and its word offset fit");
+static_assert(OUT_CAP % 16 == 0, "each block's out starts on a 16-byte boundary");
 
-__global__ void __launch_bounds__(POS_THREADS)
-lz4_emit_core_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ moff,
-                     const int32_t* __restrict__ geo, const int32_t* __restrict__ core_used,
-                     uint8_t* __restrict__ core) {
-  const int b = blockIdx.y;
-  const int p = blockIdx.x * POS_THREADS + threadIdx.x;
-  const int32_t* g = geo + (size_t)b * G_NPLANES * BLOCK;
-  uint8_t* dst = core + (size_t)b * CORE_CAP;
-  for (int i = core_used[b] + p; i < CORE_CAP; i += BLOCK) dst[i] = 0;
-  if (g[G_GLEN * BLOCK + p] == 0) return;
-  int c = g[G_CORE_POS * BLOCK + p];
-  if (g[G_ANCHOR * BLOCK + p]) {
-    dst[c++] = (uint8_t)g[G_TOKEN * BLOCK + p];
-    if (g[G_E * BLOCK + p] >= 1) dst[c++] = (uint8_t)g[G_LITREM * BLOCK + p];
-  }
-  if (g[G_KEPT * BLOCK + p]) dst[c++] = blocks[(size_t)b * BLOCK + p];
-  if (g[G_MSTART * BLOCK + p]) {
-    const int o = moff[(size_t)b * BLOCK + p];
-    dst[c++] = (uint8_t)(o & 0xFF);
-    dst[c++] = (uint8_t)(o >> 8);
-    if (g[G_ML_EXT * BLOCK + p]) dst[c++] = (uint8_t)(g[G_MLC * BLOCK + p] - 15);
+// The lane's 16 bytes of a plane where `need`, else zeros
+__device__ __forceinline__ void load4_if(bool need, const int32_t* p, int v[LANE_POS]) {
+  if (need) {
+    load4(p, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j) v[j] = 0;
   }
 }
 
-// ---------------------------------------------------------------------------
-// lz4_expand: replaces tpu7z/ops/lz4_pallas.py:127 _kernel_c
-//   (lz4_plane.phase6_expand)
-//
-// Bound: bytes. Reads glen everywhere and, where a position emits bytes,
-// four more geometry planes and its core bytes (at most 1.3 MiB per block),
-// and writes out (85 KiB): at most 1.5 MB, 0.45 us per block at 3.35 TB/s. Each position copies its core bytes to core_pos + gap_before,
-// bytes after a long run's token moving gap255 further, and writes that
-// run's 255-bytes itself. A block with no long run is a plain copy; the
-// TPU had to branch around a costly gather for it.
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(POS_THREADS)
-lz4_expand_kernel(const uint8_t* __restrict__ core, const int32_t* __restrict__ geo,
-                  const int32_t* __restrict__ used, uint8_t* __restrict__ out) {
-  const int b = blockIdx.y;
-  const int p = blockIdx.x * POS_THREADS + threadIdx.x;
+__global__ void __launch_bounds__(EMIT_THREADS, EMIT_CTAS_PER_SM)
+lz4_emit_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ moff,
+                const int32_t* __restrict__ geo, const int32_t* __restrict__ used,
+                uint8_t* __restrict__ out) {
+  __shared__ __align__(16) uint8_t stage[EMIT_WARPS][SPAN_CAP];
+  const int b = blockIdx.x / EMIT_CTAS_PER_BLOCK, cta = blockIdx.x % EMIT_CTAS_PER_BLOCK;
+  const int lane = lane_id(), warp = threadIdx.x >> 5;
+  const int r = cta * EMIT_WARPS + warp;
+  const size_t base = (size_t)b * BLOCK;
   const int32_t* g = geo + (size_t)b * G_NPLANES * BLOCK;
-  const uint8_t* src = core + (size_t)b * CORE_CAP;
   uint8_t* dst = out + (size_t)b * OUT_CAP;
-  for (int i = used[b] + p; i < OUT_CAP; i += BLOCK) dst[i] = 0;
-  const int glen = g[G_GLEN * BLOCK + p];
-  if (glen == 0) return;
-  const int cp = g[G_CORE_POS * BLOCK + p];
-  const int o = cp + g[G_GAP_BEFORE * BLOCK + p];
-  const int gap = g[G_LONG_RUN * BLOCK + p] ? g[G_GAP255 * BLOCK + p] : 0;
-  dst[o] = src[cp];
-  for (int j = 1; j <= gap; ++j) dst[o + j] = 255;
-  for (int s = 1; s < glen; ++s) dst[o + gap + s] = src[cp + s];
+  const int u = used[b];
+
+  // zeros from used on: the rest of used's word byte by byte, then whole
+  // words, spread over the block's CTAs
+  {
+    const int w0 = (u + 15) >> 4;
+    const int t = cta * EMIT_THREADS + threadIdx.x;
+    if (t < 16 * w0 - u) dst[u + t] = 0;
+    for (int w = w0 + t; w < OUT_CAP / 16; w += EMIT_CTAS_PER_BLOCK * EMIT_THREADS)
+      reinterpret_cast<uint4*>(dst)[w] = make_uint4(0, 0, 0, 0);
+  }
+
+  const int q0 = r * ROW + LANE_POS * lane;
+  int gl[LANE_POS], kp[LANE_POS];
+  load4(g + G_GLEN * BLOCK + q0, gl);
+  load4(g + G_KEPT * BLOCK + q0, kp);
+  // lane 0: the row's first offset, and whether the position before the
+  // row is kept (not at position 0); lane 31: the next row's first offset
+  int edge = 0, prev_kept = 0;
+  if (lane == 0) {
+    edge = g[G_CORE_POS * BLOCK + q0] + g[G_GAP_BEFORE * BLOCK + q0];
+    if (q0 > 0) prev_kept = g[G_KEPT * BLOCK + q0 - 1];
+  } else if (lane == 31) {
+    const int q = q0 + LANE_POS;
+    edge = q < BLOCK ? g[G_CORE_POS * BLOCK + q] + g[G_GAP_BEFORE * BLOCK + q] : u;
+  }
+  const int S = __shfl_sync(FULL, edge, 0), E = __shfl_sync(FULL, edge, 31);
+  if (S >= E) return;  // the row emits nothing (the whole warp)
+
+  // the flags of each position, as bits j of the lane's masks
+  const int up = __shfl_up_sync(FULL, kp[LANE_POS - 1], 1);
+  if (lane > 0) prev_kept = up;
+  unsigned an = 0, hd = 0, e1 = 0, ext = 0, kept = 0;
+  int lane_glen = 0, last_an = -1;
+#pragma unroll
+  for (int j = 0; j < LANE_POS; ++j) {
+    const bool emits = gl[j] > 0, k = kp[j] != 0;
+    const bool a_j = emits && !prev_kept, h_j = emits && !k;
+    an |= (unsigned)a_j << j;
+    hd |= (unsigned)h_j << j;
+    kept |= (unsigned)k << j;
+    e1 |= (unsigned)(a_j && k && gl[j] == 3) << j;
+    ext |= (unsigned)(h_j && gl[j] == (a_j ? 4 : 3)) << j;
+    if (a_j) last_an = j;
+    lane_glen += gl[j];
+    prev_kept = kp[j];
+  }
+
+  // offsets: the row's glen before each position, and its 255-run (G
+  // bytes after the token of the row's last anchor, in lane run_lane)
+  const int before = warp_exclusive_up(lane_glen, SumOp(), 0);
+  const int G = E - S - __shfl_sync(FULL, before + lane_glen, 31);
+  const unsigned anchors = __ballot_sync(FULL, an != 0);
+  const int run_lane = G > 0 && anchors ? 31 - __clz(anchors) : 32;
+  const int run_j = lane == run_lane ? last_an : -1;
+  int o[LANE_POS];
+  {
+    int at = S + before + (lane > run_lane ? G : 0);
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j) {
+      o[j] = at;
+      at += gl[j] + (j == run_j ? G : 0);
+    }
+  }
+
+  // byte i of out goes to sp[i - a]; a span holds at most 4 bytes a
+  // position and one 255-run, so it fits (the static_assert on SPAN_CAP)
+  const int a = S & ~15;
+  uint8_t* sp = stage[warp];
+
+  int tk[LANE_POS], lr[LANE_POS], mc[LANE_POS], mo[LANE_POS];
+  load4_if(an, g + G_TOKEN * BLOCK + q0, tk);
+  load4_if(e1, g + G_LITREM * BLOCK + q0, lr);
+  load4_if(ext, g + G_MLC * BLOCK + q0, mc);
+  load4_if(hd, moff + base + q0, mo);
+  const uint32_t lit = kept ? *reinterpret_cast<const uint32_t*>(blocks + base + q0) : 0u;
+
+  // the 255-run, filled by the whole warp
+  if (run_lane < 32) {
+    int from = 0;
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j)
+      if (j == run_j) from = o[j] + 1 - a;
+    from = __shfl_sync(FULL, from, run_lane);
+    for (int i = lane; i < G; i += 32) sp[from + i] = 255;
+  }
+  // each position's own bytes
+#pragma unroll
+  for (int j = 0; j < LANE_POS; ++j) {
+    if (gl[j] == 0) continue;
+    int k = o[j] - a;
+    if (an >> j & 1) {
+      sp[k++] = (uint8_t)tk[j];
+      if (j == run_j) k += G;
+      if (e1 >> j & 1) sp[k++] = (uint8_t)lr[j];
+    }
+    if (kept >> j & 1) sp[k++] = (uint8_t)(lit >> (8 * j));
+    if (hd >> j & 1) {
+      sp[k++] = (uint8_t)mo[j];
+      sp[k++] = (uint8_t)(mo[j] >> 8);
+      if (ext >> j & 1) sp[k] = (uint8_t)(mc[j] - 15);
+    }
+  }
+  __syncwarp();
+
+  // the span to out: whole 16-byte words as such, the ragged ends by byte
+  for (int w = a + 16 * lane; w < E; w += 16 * 32) {
+    if (w >= S && w + 16 <= E) {
+      *reinterpret_cast<uint4*>(dst + w) = *reinterpret_cast<const uint4*>(sp + (w - a));
+    } else {
+      for (int i = max(w, S); i < min(w + 16, E); ++i) dst[i] = sp[i - a];
+    }
+  }
 }
 
 }  // namespace
@@ -644,20 +765,23 @@ int lz4_geo_planes() { return G_NPLANES; }
 
 const char* lz4_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// What the compiler and the card make of a row kernel (0 = lz4_match, at
-// W = 0 as the main path launches it; 1 = lz4_geometry): registers and
-// local (spill) bytes a thread, threads and resident CTAs per SM.
-int lz4_row_kernel_info(int which, int* regs, int* local_bytes, int* threads,
-                        int* ctas_per_sm) {
-  const void* fn = which == 0 ? (const void*)lz4_match_kernel
-                              : (const void*)lz4_geometry_kernel;
+// What the compiler and the card make of each encoder kernel, in the order
+// of KERNELS in ops/lz4_cuda.py (0 lz4_match, at W = 0 as the main path
+// launches it; 1 lz4_parse; 2 lz4_geometry; 3 lz4_emit): registers and
+// local (spill) bytes a thread, threads a CTA and resident CTAs per SM.
+int lz4_kernel_info(int which, int* regs, int* local_bytes, int* threads, int* ctas_per_sm) {
+  const void* fns[4] = {(const void*)lz4_match_kernel, (const void*)lz4_parse_kernel,
+                        (const void*)lz4_geometry_kernel, (const void*)lz4_emit_kernel};
+  const int nthreads[4] = {ROW_THREADS, PARSE_ROWS, ROW_THREADS, EMIT_THREADS};
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  cudaError_t err = cudaFuncGetAttributes(&a, fns[which]);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
-  *threads = ROW_THREADS;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, ROW_THREADS, 0);
+  *threads = nthreads[which];
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fns[which],
+                                                            nthreads[which], 0);
 }
 
 int lz4_match_launch(const uint8_t* blocks, const int32_t* ns, const int32_t* so8,
@@ -688,20 +812,15 @@ int lz4_geometry_launch(const int32_t* mlen, const int32_t* moff, const uint8_t*
   return (int)cudaGetLastError();
 }
 
-int lz4_emit_core_launch(const uint8_t* blocks, const int32_t* moff, const int32_t* geo,
-                         const int32_t* core_used, uint8_t* core, int B,
-                         cudaStream_t stream) {
+// Refuses (cudaErrorInvalidValue, nothing launched) more blocks than a
+// flat grid of EMIT_CTAS_PER_BLOCK CTAs each can hold.
+int lz4_emit_launch(const uint8_t* blocks, const int32_t* moff, const int32_t* geo,
+                    const int32_t* used, uint8_t* out, int B, cudaStream_t stream) {
+  if (B < 0 || (long long)B * EMIT_CTAS_PER_BLOCK > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   if (B > 0)
-    lz4_emit_core_kernel<<<dim3(BLOCK / POS_THREADS, B), POS_THREADS, 0, stream>>>(
-        blocks, moff, geo, core_used, core);
-  return (int)cudaGetLastError();
-}
-
-int lz4_expand_launch(const uint8_t* core, const int32_t* geo, const int32_t* used,
-                      uint8_t* out, int B, cudaStream_t stream) {
-  if (B > 0)
-    lz4_expand_kernel<<<dim3(BLOCK / POS_THREADS, B), POS_THREADS, 0, stream>>>(
-        core, geo, used, out);
+    lz4_emit_kernel<<<B * EMIT_CTAS_PER_BLOCK, EMIT_THREADS, 0, stream>>>(blocks, moff, geo,
+                                                                        used, out);
   return (int)cudaGetLastError();
 }
 

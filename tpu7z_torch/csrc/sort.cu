@@ -1,6 +1,7 @@
 // Hand-written Hopper row sort: each row of a (B, N) key array sorted
 // stably by the key's bits [begin_bit, 32), with up to three 32-bit
-// payloads carried along.
+// payloads carried along. Stable: keys equal in those bits keep their
+// input order, so duplicate keys are allowed.
 //
 // Replaces tpu7z/ops/sort_pallas.py:76 _chunk_kernel, reached through
 // bitonic_sort (:89-127): 34 launches of 4 compare-exchange stages each,
@@ -16,7 +17,7 @@
 // cudaSuccess.
 //
 // Algorithm: a stable LSD radix sort with 8-bit digits, reduce-then-scan.
-// A row of N <= 65536 keys is cut into tiles of TILE = 4096 keys. Every
+// A row of any length N is cut into tiles of TILE = 4096 keys. Every
 // pass launches three kernels; count and scatter run over a flat grid of
 // B * tiles CTAs (blockIdx.x = row * tiles + tile, so rows never sit in
 // gridDim.y and its 65535 limit):
@@ -25,6 +26,9 @@
 //   - scan: one CTA a row scans its table in digit-major order, in place,
 //     into the row slot of each tile's first key of each digit: the row's
 //     keys of smaller digits plus the keys of that digit in earlier tiles.
+//     Each thread (digit) sweeps the row's tiles twice, for its total and
+//     then for the running slots, so any number of tiles works; at
+//     N = 1 << 22 that is 1024 tiles, one CTA walking 1 MiB a row.
 //     A kernel of its own rather than folded into scatter: folded, every
 //     scatter thread read its digit's count in all 16 tiles, and those
 //     loads, live beside the tile's keys, pushed scatter to 110
@@ -75,8 +79,6 @@ constexpr int TILE = THREADS * KPT;     // 4096 keys a CTA
 constexpr int WCHUNK = 32 * KPT;        // a warp's contiguous share of a tile
 constexpr int RADIX = 256;
 constexpr int WPAD = NWARPS + 1;        // (digit, warp) counters: a warp's distinct digits hit distinct banks
-constexpr int MAX_N = 65536;
-constexpr int MAX_TILES = MAX_N / TILE;
 constexpr int MAX_PAYLOADS = 3;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(RADIX == THREADS, "one digit a thread in the scans");
@@ -168,22 +170,22 @@ count_kernel(const KIn* __restrict__ src, uint32_t* __restrict__ counts, int N, 
 }
 
 // One CTA a row: counts[row][tile][digit] become, in place, the row slot
-// of the tile's first key of that digit.
+// of the tile's first key of that digit. Thread t sweeps digit t's counts
+// over the row's tiles twice: its total, then, after the scan over the
+// digits, a running slot written back in place.
 __global__ void __launch_bounds__(THREADS)
 scan_kernel(uint32_t* __restrict__ counts, int tiles) {
   __shared__ int wsum[NWARPS];
   uint32_t* c = counts + (size_t)blockIdx.x * tiles * RADIX + threadIdx.x;
-  int v[MAX_TILES], total = 0;
-#pragma unroll
-  for (int k = 0; k < MAX_TILES; ++k) {
-    v[k] = k < tiles ? (int)c[(size_t)k * RADIX] : 0;
-    total += v[k];
-  }
+  int total = 0;
+#pragma unroll 8
+  for (int k = 0; k < tiles; ++k) total += (int)c[(size_t)k * RADIX];
   int run = block_exclusive_scan(total, wsum);
-#pragma unroll
-  for (int k = 0; k < MAX_TILES; ++k) {
-    if (k < tiles) c[(size_t)k * RADIX] = (uint32_t)run;
-    run += v[k];
+#pragma unroll 8
+  for (int k = 0; k < tiles; ++k) {
+    const int v = (int)c[(size_t)k * RADIX];
+    c[(size_t)k * RADIX] = (uint32_t)run;
+    run += v;
   }
 }
 
@@ -348,8 +350,6 @@ extern "C" {
 
 const char* sort_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-int sort_max_n() { return MAX_N; }
-
 int sort_tile() { return TILE; }
 
 // What the compiler and the card make of the kernels of the main path's
@@ -383,12 +383,14 @@ int sort_kernel_info(int which, int* regs, int* local_bytes, int* shared_bytes, 
 // 256 u32. Payload pointers past npay are ignored. begin_bit is 0, 8, 16
 // or 24: the sort orders by bits [begin_bit, 32) and keeps the input order
 // among equal bits. Launches 3 kernels a pass, none when B or N is 0.
+// Refuses (cudaErrorInvalidValue, nothing launched) a grid of more than
+// 2**31 - 1 CTAs (B * tiles) and rows too long for int positions.
 int sort_rows_launch(const void* key_in, void* key_out, void* key_tmp, const void* p0_in,
                      void* p0_out, void* p0_tmp, const void* p1_in, void* p1_out, void* p1_tmp,
                      const void* p2_in, void* p2_out, void* p2_tmp, uint32_t* counts, int npay,
                      int key_bytes, int B, int N, int begin_bit, cudaStream_t stream) {
   if (npay < 0 || npay > MAX_PAYLOADS || (key_bytes != 4 && key_bytes != 8) || B < 0 || N < 0 ||
-      N > MAX_N || begin_bit < 0 || begin_bit > 24 || begin_bit % 8 != 0 ||
+      N > 0x7fffffff - TILE || begin_bit < 0 || begin_bit > 24 || begin_bit % 8 != 0 ||
       (long long)B * ((N + TILE - 1) / TILE) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || N == 0) return (int)cudaSuccess;

@@ -3,8 +3,8 @@
 The counterpart of tpu7z/models/lz4/jax_backend.py: match finding and the
 greedy parse run on the device (`ops.match.find_matches`, whose sort is the
 row-sort kernel on the card); the sequences are emitted on the host by the
-vectorised numpy emitter of block.py. Blocks are independent, of at most
-64 KiB (the match finder's sort key holds a 16-bit position).
+vectorised numpy emitter of block.py. Blocks are independent, of any
+size the frame takes (up to 4 MiB), and `hashlog` runs 0-31.
 """
 
 from __future__ import annotations

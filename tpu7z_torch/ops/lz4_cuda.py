@@ -6,20 +6,19 @@ used (B,) int32)`, and block b's LZ4 bytes are `out[b, :used[b]]`.
 
 The path is the sorted-neighbour candidates, whose two row sorts run in
 the kernel of sort_cuda.py (csrc/sort.cu, the counterpart of the TPU's
-bitonic_sort), followed by five kernels from csrc/lz4_stages.cu:
+bitonic_sort), followed by four kernels from csrc/lz4_stages.cu:
 
   lz4_match      words, tier-A window, run lengths   (TPU kernel a1)
   lz4_parse      lazy greedy parse                   (a2)
   lz4_geometry   sequence geometry and prefix sums   (a3)
-  lz4_emit_core  core bytes                          (b1 + b2)
-  lz4_expand     255-runs inserted                   (c)
+  lz4_emit       the LZ4 bytes, 255-runs included    (b1 + b2 + c)
 
 Each stage has a wrapper here. On CPU tensors it runs the plain PyTorch
 version from lz4_plane.py; on CUDA tensors it launches its kernel, adds
 one to LAUNCHES[name], or raises. There is no fallback between the two.
-lz4_match and lz4_geometry (the row kernels) give each warp one 128-byte
-row and move every plane as 16-byte lanes, so their inputs must start on
-a 16-byte boundary.
+lz4_match, lz4_geometry and lz4_emit (the row kernels) give each warp one
+128-byte row and move every plane as 16-byte lanes, so their inputs and
+outputs must start on a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -34,9 +33,7 @@ from . import sort_cuda
 
 BLOCK = P.BLOCK
 OUT_CAP = P.OUT_CAP
-KERNELS = ("lz4_match", "lz4_parse", "lz4_geometry", "lz4_emit_core",
-           "lz4_expand")
-ROW_KERNELS = ("lz4_match", "lz4_geometry")  # the order of lz4_row_kernel_info
+KERNELS = ("lz4_match", "lz4_parse", "lz4_geometry", "lz4_emit")
 
 # kernel launches made by the wrappers in this process, by kernel name
 LAUNCHES = {k: 0 for k in KERNELS}
@@ -47,8 +44,7 @@ _ARGTYPES = {
     "lz4_match": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "lz4_parse": [_P, _P, _I, _P],
     "lz4_geometry": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
-    "lz4_emit_core": [_P, _P, _P, _P, _P, _I, _P],
-    "lz4_expand": [_P, _P, _P, _P, _I, _P],
+    "lz4_emit": [_P, _P, _P, _P, _P, _I, _P],
 }
 _lib = None
 
@@ -70,8 +66,8 @@ def _library():
         lib.lz4_geo_planes.restype = ctypes.c_int
         lib.lz4_error_string.argtypes = [ctypes.c_int]
         lib.lz4_error_string.restype = ctypes.c_char_p
-        lib.lz4_row_kernel_info.argtypes = [_I] + 4 * [ctypes.POINTER(_I)]
-        lib.lz4_row_kernel_info.restype = ctypes.c_int
+        lib.lz4_kernel_info.argtypes = [_I] + 4 * [ctypes.POINTER(_I)]
+        lib.lz4_kernel_info.restype = ctypes.c_int
         if lib.lz4_geo_planes() != len(P.GEO_NAMES):
             raise RuntimeError("csrc/lz4_stages.cu and GEO_NAMES disagree")
         _lib = lib
@@ -90,14 +86,14 @@ def _launch(name, *args):
     LAUNCHES[name] += 1
 
 
-def row_kernel_info(name):
-    """What the compiler and the current card make of a row kernel:
+def kernel_info(name):
+    """What the compiler and the current card make of an encoder kernel:
     registers and local (spill) bytes a thread, threads a CTA and resident
     CTAs per SM (lz4_match as the main path launches it, W = 0)."""
     lib = _library()
     vals = [_I() for _ in range(4)]
-    err = lib.lz4_row_kernel_info(ROW_KERNELS.index(name),
-                                  *[ctypes.byref(v) for v in vals])
+    err = lib.lz4_kernel_info(KERNELS.index(name),
+                              *[ctypes.byref(v) for v in vals])
     if err != 0:
         raise RuntimeError(f"{name}: {lib.lz4_error_string(err).decode()}")
     return dict(zip(("regs", "local_bytes", "threads", "ctas_per_sm"),
@@ -118,7 +114,8 @@ def _check(t, name, dtype, shape, device):
 
 
 def _check_aligned(*named):
-    """The row kernels load and store 16 bytes a lane."""
+    """The row kernels load and store 16 bytes a lane (lz4_emit: its
+    planes, moff and out)."""
     for name, t in named:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: must start on a 16-byte boundary")
@@ -219,38 +216,29 @@ def geometry(mlen, moff, is_start, ns):
 
 
 def _planes(geo, B, dev):
-    """The stacked geometry planes the kernels read."""
+    """The stacked geometry planes lz4_emit reads."""
     planes = geo.get("planes")
     if planes is None:
         planes = torch.stack([geo[k] for k in P.GEO_NAMES], dim=1)
     _check(planes, "geo planes", torch.int32, (B, len(P.GEO_NAMES), BLOCK), dev)
-    for k in ("core_used", "used"):
-        _check(geo[k], k, torch.int32, (B,), dev)
+    _check(geo["used"], "used", torch.int32, (B,), dev)
     return planes
 
 
-def emit_core(blocks, moff, geo):
-    """Core bytes (B, CORE_CAP) uint8, zero from core_used on."""
+def emit(blocks, moff, geo):
+    """(out (B, OUT_CAP) uint8, used (B,) int32): block b's LZ4 bytes are
+    out[b, :used[b]], zero from used[b] on. One launch writes the bytes,
+    255-runs included; no core buffer is made on the card."""
     B, dev = blocks.shape[0], blocks.device
     _check(blocks, "blocks", torch.uint8, (B, BLOCK), dev)
     _check(moff, "moff", torch.int32, (B, BLOCK), dev)
     if not _on_card(dev):
-        return P.phase5_core(blocks, moff, geo)
-    planes = _planes(geo, B, dev)
-    core = torch.empty((B, P.CORE_CAP), dtype=torch.uint8, device=dev)
-    _launch("lz4_emit_core", blocks, moff, planes, geo["core_used"], core, B)
-    return core
-
-
-def expand(core, geo):
-    """(out (B, OUT_CAP) uint8, used (B,) int32) with the 255-runs in."""
-    B, dev = core.shape[0], core.device
-    _check(core, "core", torch.uint8, (B, P.CORE_CAP), dev)
-    if not _on_card(dev):
-        return P.phase6_expand(core, geo)
+        return P.emit_ref(blocks, moff, geo)
     planes = _planes(geo, B, dev)
     out = torch.empty((B, OUT_CAP), dtype=torch.uint8, device=dev)
-    _launch("lz4_expand", core, planes, geo["used"], out, B)
+    _check_aligned(("blocks", blocks), ("moff", moff), ("geo planes", planes),
+                   ("out", out))
+    _launch("lz4_emit", blocks, moff, planes, geo["used"], out, B)
     return out, geo["used"]
 
 
@@ -266,4 +254,4 @@ def encode_blocks(blocks, ns, W: int = P.W_DEFAULT, tier_b: bool = True):
         so8 = so4a = so4b = torch.zeros_like(blocks, dtype=torch.int32)
     mlen, moff = match_lengths(blocks, ns, so8, so4a, so4b, W)
     geo = geometry(mlen, moff, parse(mlen), ns)
-    return expand(emit_core(blocks, moff, geo), geo)
+    return emit(blocks, moff, geo)

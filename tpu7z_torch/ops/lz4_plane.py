@@ -18,6 +18,8 @@ Phases (the TPU kernel of each in brackets):
   4  sequence geometry and the output prefix sums        [a3]
   5  core bytes: each position's glen bytes at core_pos  [b1, b2]
   6  255-runs of long literal lengths inserted           [c]
+     (5 and 6 as one call: emit_ref, the plain version of the fused
+     CUDA kernel lz4_emit)
 
 Unsigned 32-bit arithmetic is carried in int64 masked to 32 bits: PyTorch
 has no uint32 shifts or compares on the CPU.
@@ -413,6 +415,12 @@ def phase6_expand(core, geo):
     return out.to(torch.uint8), geo["used"]
 
 
+def emit_ref(blocks, moff, geo):
+    """Plain version of the emit kernel: phase 6 of phase 5. Returns
+    (out (B, OUT_CAP) uint8, used (B,) int32); out is zero from used on."""
+    return phase6_expand(phase5_core(blocks, moff, geo), geo)
+
+
 def encode_blocks_ref(blocks, ns, W: int):
     """The whole encoder in plain PyTorch. blocks (B, BLOCK) uint8, ns (B,)
     int32 valid lengths. Returns (out (B, OUT_CAP) uint8, used (B,) int32):
@@ -420,4 +428,4 @@ def encode_blocks_ref(blocks, ns, W: int):
     so8, so4a, so4b = candidates(phase0_words(blocks), ns)
     mlen, moff = match_lengths_ref(blocks, ns, so8, so4a, so4b, W)
     geo = phase4_geometry(mlen, moff, phase3_parse(mlen), ns)
-    return phase6_expand(phase5_core(blocks, moff, geo), geo)
+    return emit_ref(blocks, moff, geo)

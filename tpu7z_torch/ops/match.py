@@ -24,7 +24,7 @@ from .lz4_plane import _mul32
 HASH_MULT = 2654435761
 ML_CAP = 4 + 16 * 8       # device match-length cap (merged at emission)
 EXT = 16                  # bytes compared by one extension pass
-MAX_HASHLOG = 16          # the sort key holds hash and position in 32 bits
+MAX_HASHLOG = 31          # the sentinel hash 1 << hashlog must fit a u32
 
 
 def _word(blocks):
@@ -49,22 +49,32 @@ def hashes(blocks, lengths, hashlog: int = 16):
     return v, h, in_range
 
 
-def sort_key(h):
-    """The unique key min(h, 0xFFFF) << 16 | pos (int64), whose order is
-    that of a stable sort of h: only the sentinel hash 1 << 16 (hashlog
-    16) is clipped, and the sentinel positions are the row's tail, after
-    every in-range position of hash 0xFFFF. The keys of a row arrive in
-    position order, so bits 16-31 alone give the order (begin_bit=16)."""
-    pos = torch.arange(h.shape[1], dtype=torch.int64, device=h.device)
-    return (h.clamp(max=0xFFFF) << 16) | pos
+def hash_key(h, hashlog: int):
+    """(key, begin_bit) for any row length and hashlog 0-31: the hash
+    shifted to the top of a u32, h << (31 - hashlog), as int32 raw bits.
+    Its hashlog + 1 bits hold every hash and the sentinel 1 << hashlog,
+    which sorts after them; begin_bit, the multiple of 8 at or below the
+    shift, makes a stable sort by the key a stable sort by h in
+    ceil((hashlog + 1) / 8) passes."""
+    shift = 31 - hashlog
+    return sort_cuda.raw_bits(h << shift), 8 * (shift // 8)
 
 
-def _previous_occurrence(h, sort):
+def sort_order(h, hashlog: int, sort=sort_cuda.sort_rows):
+    """order (B, N) int64: each row's positions in the order of a stable
+    sort by h, as `jnp.argsort(h, stable=True)` gives them: `hash_key`
+    sorted with the position as an int32 payload."""
+    B, N = h.shape
+    key, begin_bit = hash_key(h, hashlog)
+    pos = torch.arange(N, dtype=torch.int32, device=h.device).expand(B, N)
+    _, order = sort(key, pos.contiguous(), begin_bit=begin_bit)
+    return order.to(torch.int64)
+
+
+def _previous_occurrence(h, hashlog, sort):
     """cand (B, N) int64: the position just before p in the stable order
-    by hash when its hash equals p's, else -1. `same` compares the true
-    h, not the key: the clipped sentinel must not match a real 0xFFFF."""
-    skey, = sort(sort_key(h), begin_bit=16)
-    order = skey & 0xFFFF
+    by hash when its hash equals p's, else -1."""
+    order = sort_order(h, hashlog, sort)
     sh = h.gather(1, order)
     same = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
     same[:, 1:] = sh[:, 1:] == sh[:, :-1]
@@ -79,8 +89,9 @@ def find_matches(blocks, lengths, hashlog: int = 16, max_offset: int = 65535,
                  sort=sort_cuda.sort_rows):
     """Batched match finding and greedy parse on the device of `blocks`.
 
-    blocks: (B, N) uint8 zero padded, N <= 65536; lengths: (B,) int32
-    block sizes. Returns (selected bool, mlen int32, moff int32), each
+    blocks: (B, N) uint8 zero padded, rows of any length; lengths: (B,)
+    int32 block sizes; hashlog: 0-31, as `match_jax.find_matches` takes
+    it. Returns (selected bool, mlen int32, moff int32), each
     (B, N): selected[b, p] is True where the greedy parse takes the match
     at p, whose length and offset are mlen[b, p] and moff[b, p]. mlen and
     moff are given at every position, as the JAX version gives them.
@@ -90,10 +101,10 @@ def find_matches(blocks, lengths, hashlog: int = 16, max_offset: int = 65535,
             or blocks.dtype != torch.uint8:
         raise ValueError("blocks: expected a (B, N) uint8 tensor")
     B, N = blocks.shape
-    if not 1 <= N <= sort_cuda.MAX_N:
-        raise ValueError(f"blocks: rows of {N} bytes, expected 1..{sort_cuda.MAX_N}")
-    if not 1 <= hashlog <= MAX_HASHLOG:
-        raise ValueError(f"hashlog={hashlog}, expected 1..{MAX_HASHLOG}")
+    if N < 1:
+        raise ValueError("blocks: rows of 0 bytes, expected at least 1")
+    if not 0 <= hashlog <= MAX_HASHLOG:
+        raise ValueError(f"hashlog={hashlog}, expected 0..{MAX_HASHLOG}")
     if not isinstance(lengths, torch.Tensor) or tuple(lengths.shape) != (B,) \
             or lengths.device != blocks.device:
         raise ValueError("lengths: expected a (B,) tensor on the blocks' device")
@@ -103,7 +114,7 @@ def find_matches(blocks, lengths, hashlog: int = 16, max_offset: int = 65535,
     pos = torch.arange(N, dtype=torch.int64, device=dev)
 
     v, h, in_range = hashes(blocks, lengths, hashlog)
-    cand = _previous_occurrence(h, sort)
+    cand = _previous_occurrence(h, hashlog, sort)
 
     offset = pos - cand
     c0 = cand.clamp(0, N - 1)

@@ -1,10 +1,13 @@
-"""Row sort of unique uint32 keys with 32-bit payloads, on Hopper.
+"""Stable row sort of uint32 keys with 32-bit payloads, on Hopper.
 
-The counterpart of tpu7z/ops/sort_pallas.py `bitonic_sort`, with the same
-contract: `sort_rows(key, *payloads)` sorts each row of a (B, N) key
-tensor ascending and returns `(key_sorted, *payloads_sorted)`, every dtype
-kept. The kernel is a stable LSD radix sort in csrc/sort.cu; its plain
-version is `sort_rows_ref` (`torch.sort(stable=True)` and `gather`).
+The counterpart of tpu7z/ops/sort_pallas.py `bitonic_sort`:
+`sort_rows(key, *payloads)` sorts each row of a (B, N) key tensor
+ascending and returns `(key_sorted, *payloads_sorted)`, every dtype kept.
+Rows may be of any length and keys need not be unique: the sort is
+stable, so equal keys keep their input order (the bitonic sort takes
+rows of 65536 keys and is not stable). The kernel is a stable LSD radix
+sort in csrc/sort.cu; its plain version is `sort_rows_ref`
+(`torch.sort(stable=True)` and `gather`).
 
 Keys are uint32 values, carried in any of three dtypes:
   - torch.uint32, the values themselves;
@@ -32,7 +35,6 @@ import torch
 
 from . import _build
 
-MAX_N = 65536
 MAX_PAYLOADS = 3
 KEY_DTYPES = (torch.int32, torch.uint32, torch.int64)
 BEGIN_BITS = (0, 8, 16, 24)
@@ -60,14 +62,10 @@ def _library():
         lib.sort_rows_launch.restype = ctypes.c_int
         lib.sort_error_string.argtypes = [ctypes.c_int]
         lib.sort_error_string.restype = ctypes.c_char_p
-        lib.sort_max_n.argtypes = []
-        lib.sort_max_n.restype = ctypes.c_int
         lib.sort_tile.argtypes = []
         lib.sort_tile.restype = ctypes.c_int
         lib.sort_kernel_info.argtypes = [_I] + 5 * [ctypes.POINTER(_I)]
         lib.sort_kernel_info.restype = ctypes.c_int
-        if lib.sort_max_n() != MAX_N:
-            raise RuntimeError("csrc/sort.cu and MAX_N disagree")
         _lib = lib
     return _lib
 
@@ -112,8 +110,6 @@ def _check(key, payloads, begin_bit):
         raise ValueError("key: expected a (B, N) tensor")
     if key.dtype not in KEY_DTYPES:
         raise TypeError(f"key: dtype {key.dtype}, expected one of {KEY_DTYPES}")
-    if key.shape[1] > MAX_N:
-        raise ValueError(f"key: rows of {key.shape[1]} keys, at most {MAX_N}")
     if not key.is_contiguous():
         raise ValueError("key: must be contiguous")
     if len(payloads) > MAX_PAYLOADS:
@@ -141,8 +137,9 @@ def sort_rows_ref(key, *payloads, begin_bit: int = 0):
 
 
 def sort_rows(key, *payloads, begin_bit: int = 0):
-    """Sort each row of `key` (B, N), N <= 65536, ascending; keys must be
-    unique within a row. Returns (key_sorted, *payloads_sorted).
+    """Sort each row of `key` (B, N) ascending, stably: keys equal in the
+    bits sorted keep their input order. Returns (key_sorted,
+    *payloads_sorted).
 
     begin_bit (0, 8, 16 or 24) orders by the key's bits [begin_bit, 32)
     only, keeping the input order among keys equal there. That is the

@@ -6,8 +6,11 @@ The counterpart of tpu7z/parallel/sharded.py at one device:
     .lz4 frame is assembled on the device from the encoded blocks in
     order;
   - `sharded_find_matches` and `shard_compress_lz4`: the device match
-    finder over a batch of blocks, each block emitted on the host as a
-    frame of its own, the frames in the skippable-frame container.
+    finder over a batch of blocks (any block size, `hashlog` 0-31), each
+    block emitted on the host as a frame of its own, the frames in the
+    skippable-frame container. Every parameter after the data is
+    keyword-only: `tpu7z` takes a mesh in the place of `hashlog` and of
+    `block_size`, so a positional call could never bind alike in both.
 The bytes equal the JAX package's at any mesh size.
 """
 
@@ -74,7 +77,7 @@ def shard_compress_lz4_device(data: bytes, W: int = P.W_DEFAULT,
     return frame.cpu().numpy().tobytes()
 
 
-def sharded_find_matches(blocks, lengths, hashlog: int = 16, device=None):
+def sharded_find_matches(blocks, lengths, *, hashlog: int = 16, device=None):
     """The device match finder over a batch of blocks (B, N) uint8 with
     lengths (B,). Returns numpy (selected, mlen, moff) and the count of
     bytes the selected matches cover."""
@@ -83,7 +86,7 @@ def sharded_find_matches(blocks, lengths, hashlog: int = 16, device=None):
     return sel, mlen, moff, int(np.where(sel, mlen, 0).sum())
 
 
-def shard_compress_lz4(data: bytes, block_size: int = 1 << 16,
+def shard_compress_lz4(data: bytes, *, block_size: int = 1 << 16,
                        device=None) -> bytes:
     """Every block of `block_size` bytes as an independent .lz4 frame of
     its own, the frames in the skippable-frame container, so a decoder can
