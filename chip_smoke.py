@@ -10,7 +10,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the card, exact equality, on test patterns, short blocks, the
      edge blocks of the row kernels' joins and of lz4_emit's row spans,
      the first 2 MiB of the corpus (W = 0 and 16) and the whole 32 MiB
-     corpus (W = 0, the main path's shapes); the row-sort kernel against
+     corpus (W = 0, the main path's shapes); lz4_parse also on synthetic
+     mlen planes (random capped and uncapped values, defer chains, 4 and 0
+     everywhere, a take only at position 127, matches that end at the row
+     end, alternating 0/4, int32 extremes), with no spills and no shared
+     memory, and refusing an mlen off a 16-byte boundary; the row-sort kernel against
      its plain version, exactly, on random matcher keys with two payloads,
      fully random unique keys (N = 16384 and 65536, 0 and 3 payloads),
      ragged rows (N = 1000 and 12345), the corpus's tier-B and tier-B4
@@ -263,6 +267,8 @@ class Stages:
             "lz4_match": 4 * 3 * B * BLOCK + (B * BLOCK if self.W else 0)
                          + scal + 4 * 2 * B * BLOCK,
             "lz4_parse": 4 * count(cursor | after) + B * BLOCK,
+            # what lz4_parse's design moves: the whole of mlen, and is_start
+            "lz4_parse_floor": (4 + 1) * B * BLOCK,
             # is_start everywhere, mlen and moff at the starts; planes out
             "lz4_geometry": B * BLOCK + 4 * 2 * count(self.st) + scal
                             + 4 * len(P.GEO_NAMES) * B * BLOCK + 2 * scal,
@@ -461,6 +467,7 @@ def main() -> int:
     from tpu7z_torch.ops.hashing import xxh32
     from tpu7z_torch.parallel import sharded
     from tpu7z_torch.utils.corpus import make_corpus
+    from tpu7z_torch.utils.parse_planes import parse_planes
 
     dev = resolve_device()
     t_start = time.time()
@@ -515,6 +522,31 @@ def main() -> int:
             f"equal")
         if name == "corpus_32MiB":
             full = s
+    # lz4_parse's walk on synthetic planes; no spills, no shared memory;
+    # an mlen off a 16-byte boundary is refused before any launch
+    for name, plane in parse_planes().items():
+        mlen = torch.from_numpy(plane).to(dev)
+        got = K.parse(mlen)
+        torch.cuda.synchronize()
+        e = max_abs_err([got], [P.phase3_parse(mlen)])
+        errs["lz4_parse"] = max(errs["lz4_parse"], e)
+        if e:
+            raise AssertionError(f"lz4_parse differs from its plain version on the {name} "
+                                 f"plane: max abs err {e}")
+        log(f"check lz4_parse {name}: {tuple(mlen.shape)}, {int(got.sum())} starts, equal")
+    info = K.kernel_info("lz4_parse")
+    if info["local_bytes"] or info["shared_bytes"]:
+        raise AssertionError(f"lz4_parse uses local or shared memory: {info}")
+    n_before = K.LAUNCHES["lz4_parse"]
+    off = torch.zeros(2 * P.BLOCK + 1, dtype=torch.int32, device=dev)[1:].view(2, P.BLOCK)
+    try:
+        K.parse(off)
+    except ValueError as exc:
+        log(f"lz4_parse refuses an mlen 4 bytes off a 16-byte boundary: {exc}")
+    else:
+        raise AssertionError("lz4_parse took an mlen off a 16-byte boundary")
+    if K.LAUNCHES["lz4_parse"] != n_before:
+        raise AssertionError("lz4_parse launched on a refused mlen")
     for k in K.KERNELS:
         if K.LAUNCHES[k] == 0:
             raise AssertionError(f"{k} was never launched in the checks")
@@ -736,10 +768,13 @@ def main() -> int:
                "max_abs_err": errs[k], "equal": errs[k] == 0,
                "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+        if k + "_floor" in moved:
+            log(f"{k}: the design's floor (the whole plane read) "
+                f"{moved[k + '_floor'] / HBM_BYTES_PER_S * 1e3:.3f} ms")
         info = K.kernel_info(k)
         log(f"{k}: {info['regs']} registers a thread, {info['local_bytes']} local "
-            f"(spill) bytes, {info['threads']} threads a CTA, "
-            f"{info['ctas_per_sm']} CTAs per SM")
+            f"(spill) bytes, {info['shared_bytes']} shared bytes and {info['threads']} "
+            f"threads a CTA, {info['ctas_per_sm']} CTAs per SM")
         row.update(info)
         kernels.append(row)
     kernels.append({"name": "sort_rows", "route": "cuda", "source": SORT_SOURCE,

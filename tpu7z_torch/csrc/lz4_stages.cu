@@ -271,44 +271,157 @@ lz4_match_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__
 // lz4_parse: replaces tpu7z/ops/lz4_pallas.py:72 _kernel_a2
 //   (lz4_plane.phase3_parse)
 //
-// Bound: bytes. Reads mlen (256 KiB per block), writes is_start (64 KiB):
-// 0.1 us per block at 3.35 TB/s. The cursor is serial within a row, so one
-// thread walks one row; the rows of a CUDA block are staged through shared
-// memory so that the loads and stores stay coalesced. The walk stops at the
-// row end, which gives the same result as the TPU's fixed 128 steps.
+// A cursor walks each 128-position row from 0. At c it takes a match
+// (is_start[c] = 1, c += mlen[c]) when mlen[c] >= MIN_MATCH and it does not
+// defer, else c += 1; it defers when c + 1 < ROW and mlen[c+1] > mlen[c] + 1
+// (one-step lazy matching). Whether position p is taken when the cursor
+// stands on it depends on mlen[p] and mlen[p+1] alone, not on the path. So
+// the first start at or after the cursor is the first take at or after
+// it, and the walk jumps from one start to the next: at most 32 starts a
+// row (each moves the cursor by MIN_MATCH or more), not 128 steps.
+//
+// A group of 4 lanes a row, eight rows a warp, no shared memory. Lane i of
+// a group holds positions 16k + 4i .. 16k + 4i + 3 of its row for spans
+// k = 0..7 as eight 16-byte loads; each load instruction reads 64
+// contiguous bytes of each of the warp's eight rows, and the eight loads
+// the rows' 4 KiB whole. The neighbour of a lane's last position in a span
+// comes from the next lane, or from lane 0's next span, by shuffles within
+// the group; position 127 has none, so never defers. Each lane tables, for
+// each of its 32 positions p, the next take t at or after p and the cursor
+// after it, packed as t << 8 | min(t + mlen[t], ROW) (NO_TAKE above every
+// real entry): in the lane, then from the lanes above in the span by a
+// suffix min within the group, then from the later spans (a smaller t
+// packs smaller). Two 16-bit entries go to a register. The walk: the lane
+// picks its entry c & 3 of span c / 16 (a tree of selects and a byte
+// permute: no register array is indexed at run time, so nothing goes to
+// local memory), and one shuffle from lane (c >> 2) & 3 of the group gives
+// t and the next cursor; lane (t >> 2) & 3 marks start t. A row's walk
+// ends when no take is left at or after c or c reaches the row end; it
+// then reads NO_TAKE, so the walk has no branch but the loop's. The eight
+// groups walk at once, so one warp instruction serves eight rows, until
+// the last of them ends. Lane i then stores its 4 is_start bytes of each
+// span as one 4-byte store (16 contiguous bytes a group). A 256-thread
+// CTA takes 64 rows and the grid is B * 8 CTAs. The warps resident on an
+// SM hide one another's loads, so a warp does not prefetch its next rows
+// (a form that did was slower, PERF.md section 6).
+//
+// The SM's integer units (16 lanes a clock per sub-partition) set the
+// pace, not the bytes: the walk's steps are serial in a row, so what
+// counts is how many rows a warp instruction serves (the forms measured,
+// from a warp a row to this one, are in PERF.md, section 6).
+//
+// No int32 overflows, so the kernel equals the plain version (int64) on
+// any int32 plane: defer compares after with mlen + 1 saturated at INT_MAX
+// (nothing is greater), and a take's cursor is t + min(mlen[t], ROW - t).
+//
+// Bound: bytes. mlen at each cursor position and the one after it, and
+// is_start written (chip_smoke.py, Stages.bytes_moved): 0.029 ms over the
+// 32 MiB corpus at 3.35 TB/s. This design reads the whole plane: 5 bytes a
+// position, 167,772,160 bytes per 32 MiB, a floor of 0.050 ms.
 // ---------------------------------------------------------------------------
 
-constexpr int PARSE_ROWS = 64;  // rows (and threads) per CUDA block
+constexpr int PARSE_THREADS = 256;
+constexpr int WARP_ROWS = 8;                   // rows a warp walks at once
+constexpr int ROW_LANES = 32 / WARP_ROWS;       // lanes a row
+constexpr int PARSE_ROWS = PARSE_THREADS / ROW_LANES;  // rows a CTA
+constexpr int SPAN = ROW_LANES * LANE_POS;      // positions a load covers in a row
+constexpr int SPANS = ROW / SPAN;               // 16-byte loads a lane and row
+constexpr int LANE_SHIFT = 2;                   // log2(ROW_LANES)
+constexpr unsigned NO_TAKE = 0xff80u;  // t 255, cursor ROW: above every real entry
+static_assert(ROW_LANES == 1 << LANE_SHIFT && NROWS % WARP_ROWS == 0, "8 rows a warp");
+static_assert(SPANS * LANE_POS <= 32, "a lane's starts fit one 32-bit mask");
 
-__global__ void __launch_bounds__(PARSE_ROWS)
-lz4_parse_kernel(const int32_t* __restrict__ mlen, uint8_t* __restrict__ is_start) {
-  __shared__ int32_t ml[PARSE_ROWS][ROW + 1];
-  __shared__ uint8_t st[PARSE_ROWS][ROW];
-  const size_t row0 = (size_t)blockIdx.x * PARSE_ROWS;
-  const int32_t* src = mlen + row0 * ROW;
-  for (int i = threadIdx.x; i < PARSE_ROWS * ROW; i += PARSE_ROWS) {
-    ml[i / ROW][i % ROW] = src[i];
-    st[i / ROW][i % ROW] = 0;
+__device__ __forceinline__ void load_row(const int32_t* src, int m[SPANS][LANE_POS]) {
+#pragma unroll
+  for (int k = 0; k < SPANS; ++k) load4(src + k * SPAN, m[k]);
+}
+
+// t[k][h] for a run-time k, by a tree of selects over k's bits (an index
+// into a register array would put the array in local memory)
+template <int LO, int N>
+__device__ __forceinline__ unsigned pick_span(const unsigned (&t)[SPANS][2], unsigned k, int h) {
+  if constexpr (N == 1) {
+    return t[LO][h];
+  } else {
+    return k & (N / 2) ? pick_span<LO + N / 2, N / 2>(t, k, h) : pick_span<LO, N / 2>(t, k, h);
   }
-  __syncthreads();
-  const int r = threadIdx.x;
-  int c = 0;
-  while (c < ROW) {
-    const int cur = ml[r][c];
-    // one-step lazy matching: defer when the next position's match is
-    // more than one byte longer
-    const bool defer = c + 1 < ROW && ml[r][c + 1] > cur + 1;
-    if (cur >= MIN_MATCH && !defer) {
-      st[r][c] = 1;
-      c += cur;
-    } else {
-      c += 1;
+}
+
+__global__ void __launch_bounds__(PARSE_THREADS)
+lz4_parse_kernel(const int32_t* __restrict__ mlen, uint8_t* __restrict__ is_start) {
+  const int i = threadIdx.x % ROW_LANES;  // lane i of the row's group
+  const long long row = (long long)blockIdx.x * PARSE_ROWS + threadIdx.x / ROW_LANES;
+  int m[SPANS][LANE_POS];
+  load_row(mlen + row * ROW + LANE_POS * i, m);
+  // the next take at or after each of the lane's positions, in the lane
+  unsigned e[SPANS][LANE_POS];
+#pragma unroll
+  for (int k = 0; k < SPANS; ++k) {
+    const int down = __shfl_down_sync(FULL, m[k][0], 1, ROW_LANES);
+    const int first = __shfl_sync(FULL, m[(k + 1) % SPANS][0], 0, ROW_LANES);
+    unsigned acc = NO_TAKE;
+#pragma unroll
+    for (int j = LANE_POS - 1; j >= 0; --j) {
+      const int p = k * SPAN + LANE_POS * i + j;
+      const bool last = j == LANE_POS - 1;
+      const bool has_next = !last || i + 1 < ROW_LANES || k + 1 < SPANS;
+      const int after = !last ? m[k][j + 1] : i + 1 < ROW_LANES ? down : first;
+      // mlen + 1 saturates at INT_MAX, where nothing is greater
+      const bool defer = has_next && after > min(m[k][j], 0x7ffffffe) + 1;
+      if (m[k][j] >= MIN_MATCH && !defer)
+        acc = (unsigned)((p << 8) + p + min(m[k][j], ROW - p));
+      e[k][j] = acc;
     }
   }
-  __syncthreads();
-  uint8_t* dst = is_start + row0 * ROW;
-  for (int i = threadIdx.x; i < PARSE_ROWS * ROW; i += PARSE_ROWS)
-    dst[i] = st[i / ROW][i % ROW];
+  // then from the lanes above in the span, then from the later spans
+  unsigned later = NO_TAKE;
+#pragma unroll
+  for (int k = SPANS - 1; k >= 0; --k) {
+    unsigned v = e[k][0];
+#pragma unroll
+    for (int d = 1; d < ROW_LANES; d <<= 1) {
+      const unsigned o = __shfl_down_sync(FULL, v, d, ROW_LANES);
+      if (i + d < ROW_LANES) v = min(v, o);
+    }
+    const unsigned above = __shfl_down_sync(FULL, v, 1, ROW_LANES);
+    const unsigned rest = i + 1 < ROW_LANES ? min(above, later) : later;
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j) e[k][j] = min(e[k][j], rest);
+    later = min(later, __shfl_sync(FULL, v, 0, ROW_LANES));
+  }
+  unsigned tab[SPANS][2];  // entries 2h and 2h + 1 of span k
+#pragma unroll
+  for (int k = 0; k < SPANS; ++k)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) tab[k][h] = e[k][2 * h] | e[k][2 * h + 1] << 16;
+
+  // The walks of the warp's rows, from start to start. A row whose walk
+  // has ended reads NO_TAKE, whose cursor is ROW again and whose t (bit
+  // 15 of the entry set) marks nothing.
+  unsigned st = 0;  // bit 4k + j: position k * SPAN + 4i + j starts a match
+  unsigned c = 0;
+  // the entry's t names this lane: t < ROW and (t >> 2) % ROW_LANES == i
+  constexpr unsigned lane_mask = 0x8000u | (ROW_LANES - 1) << 10;
+  const unsigned lane_key = (unsigned)i << 10;
+  // at most 32 starts a row; the bound of ROW steps makes the end evident
+  for (int step = 0; step < ROW && __any_sync(FULL, c < ROW); ++step) {
+    // the lane's entry c & 3 of span c / SPAN (the byte permute takes its
+    // 16 bits from the span's two registers; the upper half is unused)
+    const unsigned k = c / SPAN;
+    const unsigned own = c < ROW ? __byte_perm(pick_span<0, SPANS>(tab, k, 0),
+                                               pick_span<0, SPANS>(tab, k, 1),
+                                               0x10u + (c & 3) * 0x22u)
+                                 : NO_TAKE;
+    const unsigned v = __shfl_sync(FULL, own, (c >> 2) % ROW_LANES, ROW_LANES);
+    if ((v & lane_mask) == lane_key)
+      st |= 1u << ((v >> (10 + LANE_SHIFT) & (SPANS - 1)) << 2 | (v >> 8 & 3u));
+    c = v & 0xffu;
+  }
+  uint8_t* dst = is_start + row * ROW + LANE_POS * i;
+#pragma unroll
+  for (int k = 0; k < SPANS; ++k)  // bits 4k .. 4k+3 of st to 4 bytes of 0/1
+    *reinterpret_cast<uint32_t*>(dst + k * SPAN) =
+        (st >> 4 * k & 0xfu) * 0x204081u & 0x01010101u;
 }
 
 // ---------------------------------------------------------------------------
@@ -768,17 +881,20 @@ const char* lz4_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 // What the compiler and the card make of each encoder kernel, in the order
 // of KERNELS in ops/lz4_cuda.py (0 lz4_match, at W = 0 as the main path
 // launches it; 1 lz4_parse; 2 lz4_geometry; 3 lz4_emit): registers and
-// local (spill) bytes a thread, threads a CTA and resident CTAs per SM.
-int lz4_kernel_info(int which, int* regs, int* local_bytes, int* threads, int* ctas_per_sm) {
+// local (spill) bytes a thread, static shared bytes and threads a CTA, and
+// resident CTAs per SM.
+int lz4_kernel_info(int which, int* regs, int* local_bytes, int* shared_bytes, int* threads,
+                    int* ctas_per_sm) {
   const void* fns[4] = {(const void*)lz4_match_kernel, (const void*)lz4_parse_kernel,
                         (const void*)lz4_geometry_kernel, (const void*)lz4_emit_kernel};
-  const int nthreads[4] = {ROW_THREADS, PARSE_ROWS, ROW_THREADS, EMIT_THREADS};
+  const int nthreads[4] = {ROW_THREADS, PARSE_THREADS, ROW_THREADS, EMIT_THREADS};
   if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, fns[which]);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
+  *shared_bytes = (int)a.sharedSizeBytes;
   *threads = nthreads[which];
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fns[which],
                                                             nthreads[which], 0);
@@ -799,7 +915,7 @@ int lz4_match_launch(const uint8_t* blocks, const int32_t* ns, const int32_t* so
 
 int lz4_parse_launch(const int32_t* mlen, uint8_t* is_start, int B, cudaStream_t stream) {
   if (B > 0)
-    lz4_parse_kernel<<<B * (NROWS / PARSE_ROWS), PARSE_ROWS, 0, stream>>>(mlen, is_start);
+    lz4_parse_kernel<<<B * (NROWS / PARSE_ROWS), PARSE_THREADS, 0, stream>>>(mlen, is_start);
   return (int)cudaGetLastError();
 }
 

@@ -16,9 +16,11 @@ bitonic_sort), followed by four kernels from csrc/lz4_stages.cu:
 Each stage has a wrapper here. On CPU tensors it runs the plain PyTorch
 version from lz4_plane.py; on CUDA tensors it launches its kernel, adds
 one to LAUNCHES[name], or raises. There is no fallback between the two.
-lz4_match, lz4_geometry and lz4_emit (the row kernels) give each warp one
-128-byte row and move every plane as 16-byte lanes, so their inputs and
-outputs must start on a 16-byte boundary.
+All four (the row kernels) move every plane as 16-byte lanes (lz4_parse
+stores its uint8 plane as 4-byte lanes), so their inputs and outputs must
+start on a 16-byte boundary. lz4_match, lz4_geometry and lz4_emit give
+each warp one 128-position row; lz4_parse gives each group of 4 lanes
+one, eight rows a warp.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ def _library():
         lib.lz4_geo_planes.restype = ctypes.c_int
         lib.lz4_error_string.argtypes = [ctypes.c_int]
         lib.lz4_error_string.restype = ctypes.c_char_p
-        lib.lz4_kernel_info.argtypes = [_I] + 4 * [ctypes.POINTER(_I)]
+        lib.lz4_kernel_info.argtypes = [_I] + 5 * [ctypes.POINTER(_I)]
         lib.lz4_kernel_info.restype = ctypes.c_int
         if lib.lz4_geo_planes() != len(P.GEO_NAMES):
             raise RuntimeError("csrc/lz4_stages.cu and GEO_NAMES disagree")
@@ -88,16 +90,17 @@ def _launch(name, *args):
 
 def kernel_info(name):
     """What the compiler and the current card make of an encoder kernel:
-    registers and local (spill) bytes a thread, threads a CTA and resident
-    CTAs per SM (lz4_match as the main path launches it, W = 0)."""
+    registers and local (spill) bytes a thread, static shared bytes and
+    threads a CTA, and resident CTAs per SM (lz4_match as the main path
+    launches it, W = 0)."""
     lib = _library()
-    vals = [_I() for _ in range(4)]
+    vals = [_I() for _ in range(5)]
     err = lib.lz4_kernel_info(KERNELS.index(name),
                               *[ctypes.byref(v) for v in vals])
     if err != 0:
         raise RuntimeError(f"{name}: {lib.lz4_error_string(err).decode()}")
-    return dict(zip(("regs", "local_bytes", "threads", "ctas_per_sm"),
-                    (v.value for v in vals)))
+    return dict(zip(("regs", "local_bytes", "shared_bytes", "threads",
+                     "ctas_per_sm"), (v.value for v in vals)))
 
 
 def _check(t, name, dtype, shape, device):
@@ -114,8 +117,8 @@ def _check(t, name, dtype, shape, device):
 
 
 def _check_aligned(*named):
-    """The row kernels load and store 16 bytes a lane (lz4_emit: its
-    planes, moff and out)."""
+    """The row kernels load and store 16 bytes a lane (lz4_parse: mlen;
+    lz4_emit: its planes, moff and out)."""
     for name, t in named:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: must start on a 16-byte boundary")
@@ -179,13 +182,14 @@ def match_lengths(blocks, ns, so8, so4a, so4b, W: int = P.W_DEFAULT):
 
 
 def parse(mlen):
-    """is_start (B, BLOCK) bool."""
+    """is_start (B, BLOCK) bool from any int32 mlen plane."""
     if not isinstance(mlen, torch.Tensor) or mlen.dim() != 2:
         raise ValueError("mlen: expected a (B, BLOCK) int32 tensor")
     B, dev = mlen.shape[0], mlen.device
     _check(mlen, "mlen", torch.int32, (B, BLOCK), dev)
     if not _on_card(dev):
         return P.phase3_parse(mlen)
+    _check_aligned(("mlen", mlen))
     st = torch.empty((B, BLOCK), dtype=torch.uint8, device=dev)
     _launch("lz4_parse", mlen, st, B)
     return st.view(torch.bool)
