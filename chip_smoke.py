@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
-  1. the card's name and power limit; build the kernels from
-     tpu7z_torch/csrc with nvcc, one process per source, all at once;
+  1. the card's name and power limit; build the native libraries from
+     tpu7z_torch/csrc (the kernels with nvcc, the host xxh32 with c++),
+     one process per source, all at once;
   2. each of the four encoder kernels against its plain PyTorch version
      on the card, exact equality, on test patterns, short blocks, the
      edge blocks of the row kernels' joins and of lz4_emit's row spans,
@@ -44,11 +45,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      with int32 keys, and as its launches alone; and at 8 rows of 4 MiB
      with a payload, as `find_matches` calls it at hashlog 20) beside
      `torch.sort`, the sort order `find_matches` takes at 64 KiB rows,
-     `find_matches` with either sort at both row lengths,
-     and the parts of `compress_frame_device` (host clock); registers,
+     `find_matches` with either sort at both row lengths; registers,
      spills and resident CTAs per SM of every encoder kernel and of the
      sort's kernels, and each sort kernel's device time from a
-     torch.profiler trace.
+     torch.profiler trace;
+  6. past one device: a one-rank NCCL process group, over which
+     `shard_compress_lz4_device(corpus, group)` equals phase 3's frame
+     (its launches counted), `sharded_find_matches` and
+     `shard_compress_lz4` over the first 2 MiB equal their group-less
+     results, and `reduce_progress` runs on card tensors;
+     `dryrun_multichip` at one rank a card (spawned NCCL ranks); `python -m
+     tpu7z_torch.cli a -tlz4 -mdev` on the first 2 MiB equal to
+     `shard_compress_lz4_device`, and `t` on its archive; the native xxh32
+     against the Python one (lengths 0-33, the first 2 MiB), both timed,
+     and the parts of `compress_frame_device(corpus)` (host clock); one
+     `encode_blocks` over the corpus traced by `trace.profile`, each stage
+     annotated: the device's busy time and idle share over the window.
 The line before the last is the per-kernel JSON; the last line is the
 device JSON. Imports nothing of JAX or tpu7z.
 """
@@ -57,10 +69,14 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -451,6 +467,32 @@ def max_abs_err(got, want):
     return err
 
 
+def busy_share(trace_dir, window_name):
+    """From the one torch.profiler trace in `trace_dir`: the host window of
+    the region annotated `window_name`, the union of the device's busy
+    intervals (kernels, copies, sets) inside it, the kernels counted and
+    each annotated stage's span on the device; all times in ms."""
+    (path,) = Path(trace_dir).glob("*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    (win,) = [e for e in events if e.get("name") == window_name
+              and e.get("cat") == "user_annotation"]
+    t0, t1 = win["ts"], win["ts"] + win["dur"]
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and e["ts"] < t1 and e["ts"] + e["dur"] > t0)
+    busy, end = 0.0, t0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    kernels = sum(1 for e in events if e.get("cat") == "kernel"
+                  and t0 <= e["ts"] < t1)
+    stages = {e["name"]: e["dur"] / 1e3 for e in events
+              if e.get("cat") == "gpu_user_annotation"}
+    return {"window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3, "kernels": kernels,
+            "device_spans_ms": stages}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -464,8 +506,10 @@ def main() -> int:
     from tpu7z_torch.ops import lz4_plane as P
     from tpu7z_torch.ops import match as M
     from tpu7z_torch.ops import sort_cuda as S
-    from tpu7z_torch.ops.hashing import xxh32
-    from tpu7z_torch.parallel import sharded
+    from tpu7z_torch.entry import dryrun_multichip
+    from tpu7z_torch.ops.hashing import xxh32, xxh32_native
+    from tpu7z_torch.parallel import distributed, progress, sharded
+    from tpu7z_torch.utils import trace
     from tpu7z_torch.utils.corpus import make_corpus
     from tpu7z_torch.utils.parse_planes import parse_planes
 
@@ -736,22 +780,6 @@ def main() -> int:
                                                    sort=S.sort_rows_ref))
     log(f"find_matches (8 rows of 4 MiB, hashlog 20): {fm_big_ms:.3f} ms with the row-sort "
         f"kernel, {fm_big_plain_ms:.3f} ms with the plain sort")
-    blocks_np, lengths_np = TB.pad_blocks(corpus, P.BLOCK)
-    t = time.perf_counter()
-    sel, mlen, moff = TB.find_matches_host(blocks_np, lengths_np)
-    t_dev = time.perf_counter() - t
-    t = time.perf_counter()
-    for b in range(blocks_np.shape[0]):
-        TB.emit_block(blocks_np[b, :int(lengths_np[b])], sel[b], mlen[b], moff[b])
-    t_emit = time.perf_counter() - t
-    t = time.perf_counter()
-    xxh32(corpus)
-    t_xxh = time.perf_counter() - t
-    log(f"compress_frame_device parts (host clock): device match finding with copies "
-        f"{t_dev:.3f} s, host emission {t_emit:.3f} s")
-    log(f"compress_frame_device's xxh32 of the {len(corpus)}-byte content (pure Python, "
-        f"host clock): {t_xxh:.3f} s")
-
     moved = full.bytes_moved()
     kernels = []
     for k, (kern, plain, _outs) in full.calls.items():
@@ -781,6 +809,136 @@ def main() -> int:
                     "replaces": REPLACES["sort_rows"], "launches": launches["sort_rows"],
                     "max_abs_err": errs["sort_rows"], "equal": errs["sort_rows"] == 0,
                     **sort_row["tier_b"], "bound_by": "bytes", "kernels": sort_info})
+
+    # 6. past one device: a process group, the CLI, the native xxh32 and the
+    # profiler hooks
+    import torch.distributed as dist
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0)
+    group = distributed.global_mesh()
+    log(f"process group: {dist.get_backend(group)}, {distributed.process_info()}")
+    reset_counts()
+    t = time.time()
+    framed_g = sharded.shard_compress_lz4_device(corpus, group, W=0)
+    torch.cuda.synchronize()
+    c = counts()
+    log(f"shard_compress_lz4_device({len(corpus)} bytes, one-rank NCCL group, W=0): "
+        f"{len(framed_g)} bytes in {time.time() - t:.2f} s (host clock), launches {c}")
+    if any(c[k] != 1 for k in K.KERNELS) or c["sort_rows"] != 2:
+        raise AssertionError(f"one-rank group: launches {c}, expected each encoder kernel "
+                             f"once and two row sorts")
+    if framed_g != framed:
+        raise AssertionError("the one-rank group's frame differs from the group-less frame")
+    log("one-rank group's frame equals the group-less frame byte for byte (which phase 3 "
+        "decoded)")
+    blocks_np, lengths_np = TB.pad_blocks(head, P.BLOCK)
+    got = sharded.sharded_find_matches(blocks_np, lengths_np, group)
+    want = sharded.sharded_find_matches(blocks_np, lengths_np)
+    if not all(np.array_equal(g, w) for g, w in zip(got[:3], want[:3])) or got[3] != want[3]:
+        raise AssertionError("sharded_find_matches with the group differs from without")
+    if sharded.shard_compress_lz4(head, group) != box:
+        raise AssertionError("shard_compress_lz4 with the group differs from without")
+    log(f"sharded_find_matches ({blocks_np.shape[0]} blocks, {got[3]} bytes covered) and "
+        f"shard_compress_lz4 over the first 2 MiB with the group: equal to without")
+    used_c = used.to(torch.int64)
+    errors = torch.zeros_like(used_c)
+    errors[7] = 3
+    tot = progress.reduce_progress(cn.to(torch.int64), used_c, errors, group)
+    if any(t_.device.type != "cuda" for t_ in tot) or [int(t_) for t_ in tot] != [
+            len(corpus), int(used_c.sum()), 3]:
+        raise AssertionError(f"reduce_progress on the card gave {tot}")
+    log(f"reduce_progress on card tensors over the group: {[int(t_) for t_ in tot]}")
+    n_cards = torch.cuda.device_count()
+    t = time.time()
+    dryrun_multichip(n_cards)
+    log(f"dryrun_multichip({n_cards}): {n_cards} spawned NCCL rank(s), frame equal to one "
+        f"rank's and decoded, in {time.time() - t:.1f} s (host clock)")
+    if n_cards == 1:
+        log("one card: more than one rank was exercised only by the CPU tests (gloo)")
+    dist.destroy_process_group()
+
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(dir=_build.BUILD))
+    try:
+        (work / "head.bin").write_bytes(head)
+        env = dict(os.environ, PYTHONPATH=str(root))
+        for args in (["a", "-tlz4", "-mdev", "head.lz4", "head.bin"], ["t", "head.lz4"]):
+            t = time.time()
+            r = subprocess.run([sys.executable, "-m", "tpu7z_torch.cli", *args], cwd=work,
+                               env=env, capture_output=True, text=True, timeout=300)
+            log(f"python -m tpu7z_torch.cli {' '.join(args)}: exit {r.returncode} in "
+                f"{time.time() - t:.1f} s: {r.stdout.strip()!r}")
+            if r.returncode != 0:
+                raise AssertionError(f"the CLI failed:\n{r.stdout}\n{r.stderr}")
+        if (work / "head.lz4").read_bytes() != sharded.shard_compress_lz4_device(head):
+            raise AssertionError("the CLI's frame differs from shard_compress_lz4_device's")
+        log("the CLI's frame equals shard_compress_lz4_device's")
+    finally:
+        shutil.rmtree(work)
+
+    for n in range(34):
+        if xxh32_native(head[:n]) != xxh32(head[:n]):
+            raise AssertionError(f"xxh32_native differs from xxh32 on {n} bytes")
+    t = time.perf_counter()
+    py_head = xxh32(head)
+    t_py = time.perf_counter() - t
+    if xxh32_native(head) != py_head:
+        raise AssertionError("xxh32_native differs from xxh32 on the first 2 MiB")
+    xxh_times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        xxh32_native(corpus)
+        xxh_times.append(time.perf_counter() - t)
+    t_xxh = statistics.median(xxh_times)
+    log(f"xxh32_native equals xxh32 on lengths 0-33 and the first 2 MiB; host clock: native "
+        f"over {len(corpus)} bytes {t_xxh * 1e3:.3f} ms (median of 5, "
+        f"{len(corpus) / t_xxh / 1e9:.2f} GB/s), Python over {len(head)} bytes {t_py:.3f} s")
+    blocks_np, lengths_np = TB.pad_blocks(corpus, P.BLOCK)
+    t = time.perf_counter()
+    sel, mlen, moff = TB.find_matches_host(blocks_np, lengths_np)
+    t_dev = time.perf_counter() - t
+    t = time.perf_counter()
+    for b in range(blocks_np.shape[0]):
+        TB.emit_block(blocks_np[b, :int(lengths_np[b])], sel[b], mlen[b], moff[b])
+    t_emit = time.perf_counter() - t
+    del sel, mlen, moff
+    t = time.perf_counter()
+    TB.compress_frame_device(corpus)
+    t_call = time.perf_counter() - t
+    log(f"compress_frame_device({len(corpus)} bytes) (host clock): the call {t_call:.3f} s; "
+        f"its parts: device match finding with copies {t_dev:.3f} s, host emission "
+        f"{t_emit:.3f} s, xxh32_native {t_xxh:.4f} s")
+
+    logdir = tempfile.mkdtemp(dir=_build.BUILD)
+    try:
+        want_out, want_used = K.encode_blocks(cb, cn, 0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with trace.profile(logdir):
+            with trace.annotate("encode_blocks"):
+                with trace.annotate("candidates"):
+                    so8, so4a, so4b = K.candidates(cb, cn)
+                with trace.annotate("lz4_match"):
+                    mlen, moff = K.match_lengths(cb, cn, so8, so4a, so4b, 0)
+                with trace.annotate("lz4_parse"):
+                    st = K.parse(mlen)
+                with trace.annotate("lz4_geometry"):
+                    geo = K.geometry(mlen, moff, st, cn)
+                with trace.annotate("lz4_emit"):
+                    out_t, used_t = K.emit(cb, moff, geo)
+                torch.cuda.synchronize()
+        t_traced = time.perf_counter() - t
+        if not (torch.equal(out_t, want_out) and torch.equal(used_t, want_used)):
+            raise AssertionError("the traced encoder's output differs from encode_blocks'")
+        share = busy_share(logdir, "encode_blocks")
+    finally:
+        shutil.rmtree(logdir)
+    if share["kernels"] == 0:
+        raise AssertionError("the trace of encode_blocks holds no kernel")
+    log(f"traced encode_blocks (32 MiB, W=0; host clock with the profiler {t_traced:.3f} s): "
+        f"annotated window {share['window_ms']:.3f} ms, device busy {share['busy_ms']:.3f} ms "
+        f"({share['kernels']} kernels), idle share "
+        f"{1 - share['busy_ms'] / share['window_ms']:.4f}; stages on the device (ms): "
+        f"{ {k: round(v, 3) for k, v in share['device_spans_ms'].items()} }")
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

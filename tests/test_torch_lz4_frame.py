@@ -100,7 +100,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, tpu7z_torch.parallel.sharded, "
             "tpu7z_torch.ops.lz4_cuda, tpu7z_torch.ops.match, "
             "tpu7z_torch.ops.sort_cuda, "
-            "tpu7z_torch.models.lz4.torch_backend, tpu7z_torch.entry; "
+            "tpu7z_torch.models.lz4.torch_backend, tpu7z_torch.entry, "
+            "tpu7z_torch.parallel.distributed, tpu7z_torch.parallel.progress, "
+            "tpu7z_torch.cli.main, tpu7z_torch.utils.trace; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'tpu7z')); "
             "print(bad); sys.exit(1 if bad else 0)")

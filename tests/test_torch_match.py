@@ -201,9 +201,10 @@ def test_sharded_find_matches_long_rows_and_hashlog_equal_jax():
 
 
 def test_sharded_entry_points_take_no_positional_options():
-    """tpu7z's third and second parameters are a mesh; the port's options
-    after the data are keyword-only, so a positional call binds alike in
-    both packages or not at all."""
+    """tpu7z's third and second parameters are a mesh, and the port's a
+    process group, with every option after it keyword-only: a positional
+    option lands on the group and raises, as it would bind the mesh in
+    tpu7z."""
     blocks, lengths = torch_backend.pad_blocks(b"abcd" * 100, 1 << 16)
     with pytest.raises(TypeError):
         sharded.sharded_find_matches(blocks, lengths, 16)

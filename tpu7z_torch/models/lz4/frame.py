@@ -17,7 +17,7 @@ carry the skippable container's sizes; the decoder skips them.
 
 from __future__ import annotations
 
-from ...ops.hashing import xxh32
+from ...ops.hashing import xxh32, xxh32_native
 from . import block as lz4block
 from .block import CorruptError
 
@@ -145,7 +145,7 @@ def decompress(src: bytes) -> bytes:
     parts = []
     for size, bsize, blocks, checksum in _frames(src):
         data = b"".join(decode_block(s, p, bsize) for s, p in blocks)
-        if checksum is not None and xxh32(data) != checksum:
+        if checksum is not None and xxh32_native(data) != checksum:
             raise CorruptError("lz4 frame: content checksum mismatch")
         if size is not None and len(data) != size:
             raise CorruptError("lz4 frame: content size mismatch")

@@ -14,7 +14,7 @@ import torch
 
 from ...device import resolve_device
 from ...ops import match
-from ...ops.hashing import xxh32
+from ...ops.hashing import xxh32_native
 from . import block as blockmod
 from .frame import _BD_SIZES, _pick_bd, block_record, frame_header
 
@@ -80,5 +80,5 @@ def compress_frame_device(data: bytes, block_size: int = 1 << 16,
     for b, comp in enumerate(comps):
         out += block_record(blocks[b, :int(lengths[b])].tobytes(), comp)
     out += (0).to_bytes(4, "little")
-    out += xxh32(data).to_bytes(4, "little")
+    out += xxh32_native(data).to_bytes(4, "little")
     return bytes(out)

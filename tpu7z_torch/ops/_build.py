@@ -1,10 +1,11 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
-Each source `csrc/<name>.cu` becomes one shared library with a plain C
-interface, compiled by `nvcc` for Hopper (`sm_90a`) into `_build/` inside
-the package at first use, and loaded with ctypes. A library is rebuilt
-when the hash of its source, the shared headers or the flags changes.
-Nothing here runs at import time.
+Each source becomes one shared library with a plain C interface, built
+into `_build/` inside the package at first use and loaded with ctypes:
+`csrc/<name>.cu`, a CUDA kernel source, by `nvcc` for Hopper (`sm_90a`);
+`csrc/<name>.cpp`, host code, by the host C++ compiler (`$CXX`, else
+`c++`). A library is rebuilt when the hash of its source, the shared
+headers or the flags changes. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -36,44 +38,69 @@ def nvcc() -> str:
     return found
 
 
+def cxx() -> str:
+    name = os.environ.get("CXX") or "c++"
+    found = shutil.which(name)
+    if found is None:
+        raise RuntimeError(f"{name} not found: set CXX or put c++ on PATH")
+    return found
+
+
+def _source(name: str) -> Path:
+    for suffix in (".cu", ".cpp"):
+        src = CSRC / f"{name}{suffix}"
+        if src.exists():
+            return src
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
-    for hdr in sorted(CSRC.glob("*.cuh")):
+    src = _source(name)
+    cuda = src.suffix == ".cu"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS if cuda else CXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")) if cuda else ():
         h.update(hdr.read_bytes())
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _command(name: str, out: Path) -> list[str]:
+    src = _source(name)
+    if src.suffix == ".cu":
+        return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [cxx(), *CXX_FLAGS, "-o", str(out), str(src)]
+
+
 def build(names=None) -> list[Path]:
-    """Compile the named sources (default: every `csrc/*.cu`) that are not
-    built yet, one nvcc process each, all started together. Returns the
-    library paths."""
+    """Compile the named sources (default: every `csrc/*.cu` and
+    `csrc/*.cpp`) that are not built yet, one compiler process each, all
+    started together. Returns the library paths."""
     if names is None:
-        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+        names = sorted(p.stem for p in [*CSRC.glob("*.cu"), *CSRC.glob("*.cpp")])
     BUILD.mkdir(exist_ok=True)
     todo = []
     for name in names:
         so = _target(name)
         if not so.exists():
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            todo.append((so, tmp, subprocess.Popen(
+            cmd = _command(name, tmp)
+            todo.append((so, tmp, cmd[0], subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
-    for so, tmp, proc in todo:
+    for so, tmp, compiler, proc in todo:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"{so.name}: nvcc exit {proc.returncode}\n"
+            errors.append(f"{so.name}: {compiler} exit {proc.returncode}\n"
                           + log.decode(errors="replace"))
         else:
             os.replace(tmp, so)
     if errors:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+        raise RuntimeError("native build failed:\n" + "\n".join(errors))
     return [_target(name) for name in names]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library built from `csrc/<name>.cu`, built if needed."""
+    """The library built from `csrc/<name>.cu` or `.cpp`, built if needed."""
     lib = _loaded.get(name)
     if lib is None:
         (path,) = build([name])

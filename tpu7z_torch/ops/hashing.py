@@ -1,9 +1,16 @@
-"""XXH32 (the .lz4 frame's header checksum), written against the public
-xxHash specification."""
+"""XXH32, the .lz4 frame's checksum, written against the public xxHash
+specification, twice: `xxh32` in Python (the spec's twin, used for the
+frames' 2- to 10-byte header checksums, so importing the frame module
+builds nothing) and `xxh32_native`, the host library built from
+csrc/xxh32.cpp (the content checksums, over whole inputs)."""
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+
+from . import _build
 
 _P32_1 = 0x9E3779B1
 _P32_2 = 0x85EBCA77
@@ -58,3 +65,21 @@ def xxh32(data, seed: int = 0) -> int:
     h = (h * _P32_3) & _M32
     h ^= h >> 16
     return h
+
+
+_native = None
+
+
+def xxh32_native(data, seed: int = 0) -> int:
+    """XXH32 of `data` (bytes-like, or a uint8 array) by the host library
+    built from csrc/xxh32.cpp with the host C++ compiler; equal to
+    `xxh32`. A failed build raises."""
+    global _native
+    if _native is None:
+        fn = _build.load("xxh32").tz_xxh32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint32]
+        fn.restype = ctypes.c_uint32
+        _native = fn
+    buf = (np.ascontiguousarray(data, dtype=np.uint8) if isinstance(data, np.ndarray)
+           else np.frombuffer(data, dtype=np.uint8))
+    return _native(buf.ctypes.data, buf.size, seed & _M32)

@@ -1,23 +1,31 @@
-"""LZ4 frame compression on one device.
+"""LZ4 frame compression over the ranks of a process group.
 
-The counterpart of tpu7z/parallel/sharded.py at one device:
-  - `shard_compress_lz4_device`: the input is cut into 64 KiB blocks,
-    every block is encoded by the device block encoder, and one standard
-    .lz4 frame is assembled on the device from the encoded blocks in
-    order;
+The counterpart of tpu7z/parallel/sharded.py, with a `torch.distributed`
+process group (parallel/mesh.py) where tpu7z has a mesh; `None` is the
+calling process alone, and no collective runs:
+  - `shard_compress_lz4_device`: the input is cut into 64 KiB blocks, the
+    block count padded to a multiple of the world size, and each rank
+    encodes its contiguous span of blocks with the device block encoder;
+    ordered all-gathers of the encoded blocks, their sizes, the raw
+    blocks and their lengths then let every rank assemble the same
+    standard .lz4 frame on its device;
   - `sharded_find_matches` and `shard_compress_lz4`: the device match
     finder over a batch of blocks (any block size, `hashlog` 0-31), each
-    block emitted on the host as a frame of its own, the frames in the
-    skippable-frame container. Every parameter after the data is
-    keyword-only: `tpu7z` takes a mesh in the place of `hashlog` and of
-    `block_size`, so a positional call could never bind alike in both.
-The bytes equal the JAX package's at any mesh size.
+    rank over its rows, the rows gathered in order; each block is emitted
+    on the host as a frame of its own, the frames in the skippable-frame
+    container.
+The group is the second positional parameter of `shard_compress_lz4` and
+`shard_compress_lz4_device` and the third of `sharded_find_matches`, as
+the mesh is in tpu7z; every parameter after it is keyword-only, so a
+positional call binds alike in both packages or raises. The bytes equal
+the JAX package's at any world and mesh size.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..containers import skippable
 from ..device import resolve_device
@@ -25,14 +33,35 @@ from ..models.lz4 import torch_backend
 from ..models.lz4.frame import HEADER, block_record, frame_header
 from ..ops import lz4_cuda
 from ..ops import lz4_plane as P
-from ..ops.hashing import xxh32
+from ..ops import match
+from ..ops.hashing import xxh32_native
+from . import mesh
 
 
-def split_blocks(data: bytes, device):
-    """(blocks (B, BLOCK) uint8 zero padded, ns (B,) int32) on `device`;
-    empty input still gives one block, of length 0."""
-    blocks, ns = torch_backend.pad_blocks(data, P.BLOCK)
-    return torch.from_numpy(blocks).to(device), torch.from_numpy(ns).to(device)
+def split_blocks(data: bytes, device, first: int = 0, count: int | None = None):
+    """(blocks (count, BLOCK) uint8 zero padded, ns (count,) int32) on
+    `device`: blocks `first` .. `first + count - 1` of `data`, those past
+    its end of length 0. By default every block of `data`; empty input
+    still gives one block, of length 0."""
+    N = P.BLOCK
+    if count is None:
+        count = max(1, -(-len(data) // N))
+    src = np.frombuffer(data, dtype=np.uint8)[first * N:(first + count) * N]
+    blocks = np.zeros(count * N, dtype=np.uint8)
+    blocks[:src.size] = src
+    ns = np.clip(len(data) - (first + np.arange(count)) * N, 0, N).astype(np.int32)
+    return (torch.from_numpy(blocks.reshape(count, N)).to(device),
+            torch.from_numpy(ns).to(device))
+
+
+def _all_gather(t, group):
+    """`t` of every rank of `group`, in rank order, joined along dim 0 (bool
+    travels as uint8)."""
+    carrier = t.contiguous().view(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+    parts = [torch.empty_like(carrier) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, carrier, group=group)
+    out = torch.cat(parts)
+    return out.view(torch.bool) if t.dtype == torch.bool else out
 
 
 def assemble(out, used, blocks, ns):
@@ -65,38 +94,68 @@ def assemble(out, used, blocks, ns):
     return torch.cat([head, body.to(torch.uint8), end])
 
 
-def shard_compress_lz4_device(data: bytes, W: int = P.W_DEFAULT,
+def shard_compress_lz4_device(data: bytes, group=None, *, W: int = P.W_DEFAULT,
                               tier_b: bool = True, device=None) -> bytes:
-    """Compress `data` into one .lz4 frame with the device block encoder.
-    tier_b=False drops the sorted-neighbour candidate tiers. Runs on the
-    CUDA card unless `device` names another."""
+    """Compress `data` into one .lz4 frame with the device block encoder,
+    each rank of `group` encoding an equal contiguous span of blocks; every
+    rank returns the same bytes. tier_b=False drops the sorted-neighbour
+    candidate tiers. Runs on the CUDA card unless `device` names another."""
+    size, rank = mesh.world(group, device)
     dev = resolve_device(device)
-    blocks, ns = split_blocks(data, dev)
+    nb = max(1, -(-len(data) // P.BLOCK))
+    k = -(-nb // size)
+    blocks, ns = split_blocks(data, dev, rank * k, k)
     out, used = lz4_cuda.encode_blocks(blocks, ns, W, tier_b)
+    if group is not None:
+        out, used, blocks, ns = (_all_gather(t, group) for t in (out, used, blocks, ns))
     frame = assemble(out, used, blocks, ns)
     return frame.cpu().numpy().tobytes()
 
 
-def sharded_find_matches(blocks, lengths, *, hashlog: int = 16, device=None):
+def sharded_find_matches(blocks, lengths, group=None, *, hashlog: int = 16,
+                         device=None):
     """The device match finder over a batch of blocks (B, N) uint8 with
-    lengths (B,). Returns numpy (selected, mlen, moff) and the count of
-    bytes the selected matches cover."""
-    sel, mlen, moff = torch_backend.find_matches_host(blocks, lengths, hashlog,
-                                                      device)
-    return sel, mlen, moff, int(np.where(sel, mlen, 0).sum())
+    lengths (B,), B divisible by the world size of `group`: each rank
+    finds the matches of its B / size rows, and the rows are gathered in
+    order. Returns numpy (selected, mlen, moff) and the count of bytes the
+    selected matches cover."""
+    size, rank = mesh.world(group, device)
+    dev = resolve_device(device)
+    B = blocks.shape[0]
+    if B % size:
+        raise ValueError(f"{B} blocks do not divide over {size} ranks")
+    rows = slice(rank * (B // size), (rank + 1) * (B // size))
+    sel, mlen, moff = match.find_matches(
+        torch.from_numpy(np.ascontiguousarray(blocks[rows])).to(dev),
+        torch.from_numpy(np.asarray(lengths, np.int32)[rows].copy()).to(dev),
+        hashlog=hashlog)
+    covered = torch.where(sel, mlen, 0).sum()
+    if group is not None:
+        sel, mlen, moff = (_all_gather(t, group) for t in (sel, mlen, moff))
+        dist.all_reduce(covered, group=group)
+    return (sel.cpu().numpy(), mlen.cpu().numpy(), moff.cpu().numpy(),
+            int(covered))
 
 
-def shard_compress_lz4(data: bytes, *, block_size: int = 1 << 16,
+def shard_compress_lz4(data: bytes, group=None, *, block_size: int = 1 << 16,
                        device=None) -> bytes:
     """Every block of `block_size` bytes as an independent .lz4 frame of
     its own, the frames in the skippable-frame container, so a decoder can
-    split the work without parsing. Runs on the CUDA card unless `device`
-    names another."""
-    dev = resolve_device(device)
+    split the work without parsing. The blocks' matches are found over the
+    ranks of `group`, the block count padded to a multiple of its size;
+    every rank returns the same bytes. Runs on the CUDA card unless
+    `device` names another."""
+    size, _ = mesh.world(group, device)
     blocks, lengths = torch_backend.pad_blocks(data, block_size)
-    sel, mlen, moff, _ = sharded_find_matches(blocks, lengths, device=dev)
+    nb = blocks.shape[0]
+    pad = -nb % size
+    if pad:
+        blocks = np.concatenate([blocks, np.zeros((pad, block_size), np.uint8)])
+        lengths = np.concatenate([lengths, np.zeros(pad, np.int32)])
+    sel, mlen, moff, _ = sharded_find_matches(blocks, lengths, group,
+                                              device=device)
     frames = []
-    for b in range(blocks.shape[0]):
+    for b in range(nb):
         s = blocks[b, :int(lengths[b])]
         body = torch_backend.emit_block(s, sel[b], mlen[b], moff[b])
         frames.append(_wrap_single_block_frame(s, body, block_size))
@@ -109,4 +168,4 @@ def _wrap_single_block_frame(chunk: np.ndarray, comp: bytes,
     LZ4 bytes are not shorter."""
     raw = chunk.tobytes()
     return (frame_header(len(raw), block_size) + block_record(raw, comp)
-            + (0).to_bytes(4, "little") + xxh32(raw).to_bytes(4, "little"))
+            + (0).to_bytes(4, "little") + xxh32_native(raw).to_bytes(4, "little"))
