@@ -5,8 +5,8 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit; build the native libraries from
-     tpu7z_torch/csrc (the kernels with nvcc, the host xxh32 with c++),
-     one process per source, all at once;
+     tpu7z_torch/csrc (the kernels with nvcc, the host xxh32 and LZ4 codec
+     with c++), one process per source, all at once;
   2. each of the four encoder kernels against its plain PyTorch version
      on the card, exact equality, on test patterns, short blocks, the
      edge blocks of the row kernels' joins and of lz4_emit's row spans,
@@ -29,8 +29,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      match finder's keys for 4 MiB rows at hashlog 12, 20 and 31;
   3. the main path: `shard_compress_lz4_device` over the 32 MiB corpus on
      the card, launch counts per kernel (each encoder kernel once, two
-     row sorts), the frame decoded by the port's decoder, and the
-     compression ratio checked;
+     row sorts), the frame decoded by the port's decoder (its blocks by
+     the native host decoder, csrc/lz4_host.cpp, timed; every 16th block
+     also by its numpy twin `decompress_block_ref`, and the two compared),
+     and the compression ratio checked;
   4. the match-finder path, each part with the counts set to 0 before it:
      `find_matches` over the corpus with the kernel against the same with
      the plain sort, as 512 rows of 64 KiB and as 8 rows of 4 MiB at
@@ -60,9 +62,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      against the Python one (lengths 0-33, the first 2 MiB), both timed,
      and the parts of `compress_frame_device(corpus)` (host clock); one
      `encode_blocks` over the corpus traced by `trace.profile`, each stage
-     annotated: the device's busy time and idle share over the window.
-The line before the last is the per-kernel JSON; the last line is the
-device JSON. Imports nothing of JAX or tpu7z.
+     annotated: the device's busy time and idle share over the window;
+  7. the benchmark: `python3 bench_torch.py` in a process of its own (at
+     most 600 s); its result line is printed, and must name the metric,
+     read device_ratio 1.818 with every block verified, and name the card
+     and power limit of phase 1.
+The timing helpers are tpu7z_torch/utils/timing.py's, shared with
+bench_torch.py. The line before the last is the per-kernel JSON; the last
+line is the device JSON. Imports nothing of JAX or tpu7z.
 """
 
 from __future__ import annotations
@@ -82,9 +89,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-EXPECTED_RATIO = 1.818        # device_ratio of the 32 MiB corpus at W=0
-# sha256 of make_corpus(32 MiB), the bytes that ratio was measured on
-CORPUS_SHA256 = "05224620a507811d6a855ddf98cc7f0a4a1ede748fba0f6f8747ddb639b6cb2a"
+BENCH_TIMEOUT_S = 600
 SOURCE = "tpu7z_torch/csrc/lz4_stages.cu"
 SORT_SOURCE = "tpu7z_torch/csrc/sort.cu"
 REPLACES = {
@@ -99,40 +104,6 @@ ODD = 2654435761
 
 def log(msg):
     print(msg, flush=True)
-
-
-def timed(fn, reps=5):
-    """Median milliseconds of `fn` on the card, after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def timed_launches(fn, launches=10, reps=5):
-    """Median milliseconds of one call of `fn` on the card, from events
-    around `launches` calls back to back, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return statistics.median(times)
 
 
 def patterns(block):
@@ -467,39 +438,13 @@ def max_abs_err(got, want):
     return err
 
 
-def busy_share(trace_dir, window_name):
-    """From the one torch.profiler trace in `trace_dir`: the host window of
-    the region annotated `window_name`, the union of the device's busy
-    intervals (kernels, copies, sets) inside it, the kernels counted and
-    each annotated stage's span on the device; all times in ms."""
-    (path,) = Path(trace_dir).glob("*.json")
-    events = json.loads(path.read_text())["traceEvents"]
-    (win,) = [e for e in events if e.get("name") == window_name
-              and e.get("cat") == "user_annotation"]
-    t0, t1 = win["ts"], win["ts"] + win["dur"]
-    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1)) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                   and e["ts"] < t1 and e["ts"] + e["dur"] > t0)
-    busy, end = 0.0, t0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    kernels = sum(1 for e in events if e.get("cat") == "kernel"
-                  and t0 <= e["ts"] < t1)
-    stages = {e["name"]: e["dur"] / 1e3 for e in events
-              if e.get("cat") == "gpu_user_annotation"}
-    return {"window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3, "kernels": kernels,
-            "device_spans_ms": stages}
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from tpu7z_torch.device import resolve_device
     from tpu7z_torch.entry import entry
-    from tpu7z_torch.models.lz4 import frame
+    from tpu7z_torch.models.lz4 import block, frame
     from tpu7z_torch.models.lz4 import torch_backend as TB
     from tpu7z_torch.ops import _build
     from tpu7z_torch.ops import lz4_cuda as K
@@ -509,18 +454,16 @@ def main() -> int:
     from tpu7z_torch.entry import dryrun_multichip
     from tpu7z_torch.ops.hashing import xxh32, xxh32_native
     from tpu7z_torch.parallel import distributed, progress, sharded
-    from tpu7z_torch.utils import trace
-    from tpu7z_torch.utils.corpus import make_corpus
+    from tpu7z_torch.utils.corpus import CORPUS_RATIO, CORPUS_SHA256, make_corpus
     from tpu7z_torch.utils.parse_planes import parse_planes
+    from tpu7z_torch.utils.timing import card, timed, timed_launches, traced_encode
 
     dev = resolve_device()
     t_start = time.time()
 
     # 1. card and build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    log(smi)
+    card_name, power_limit = card()
+    log(f"{card_name}, {power_limit}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t = time.time()
@@ -634,7 +577,19 @@ def main() -> int:
     t = time.time()
     if frame.decompress(framed) != corpus:
         raise AssertionError("the frame does not decode to the input")
-    log(f"frame decoded by the port's decoder in {time.time() - t:.1f} s: equal")
+    log(f"frame decoded by the port's decoder (native host blocks) in {time.time() - t:.3f} s: "
+        f"equal")
+    # the native decoder against its numpy twin on every 16th block
+    checked = 0
+    for i, (stored, payload) in enumerate(frame.iter_blocks(framed)):
+        if i % 16 or stored:
+            continue
+        got = block.decompress_block(payload, dst_size=P.BLOCK)
+        if got != block.decompress_block_ref(payload, dst_size=P.BLOCK):
+            raise AssertionError(f"the native decoder differs from decompress_block_ref on "
+                                 f"block {i}")
+        checked += 1
+    log(f"native decoder equals decompress_block_ref on {checked} blocks (every 16th)")
     # device_ratio as bench.py computes it: bytes / sum of min(used, BLOCK + 4)
     out, used = K.encode_blocks(cb, cn, 0)
     comp_total = int(torch.clamp(used.to(torch.int64), max=P.BLOCK + 4).sum())
@@ -643,8 +598,8 @@ def main() -> int:
     if sizes != [u for u, n_ in zip(used.tolist(), cn.tolist()) if u < n_]:
         raise AssertionError("frame block sizes disagree with encode_blocks")
     log(f"device_ratio {ratio:.6f} ({len(corpus)} / {comp_total})")
-    if round(ratio, 3) != EXPECTED_RATIO:
-        raise AssertionError(f"device_ratio {ratio:.4f} != {EXPECTED_RATIO}")
+    if round(ratio, 3) != CORPUS_RATIO:
+        raise AssertionError(f"device_ratio {ratio:.4f} != {CORPUS_RATIO}")
 
     # 4. the match-finder path, each part counted on its own
     def counted(name, fn):
@@ -908,37 +863,38 @@ def main() -> int:
         f"its parts: device match finding with copies {t_dev:.3f} s, host emission "
         f"{t_emit:.3f} s, xxh32_native {t_xxh:.4f} s")
 
-    logdir = tempfile.mkdtemp(dir=_build.BUILD)
-    try:
-        want_out, want_used = K.encode_blocks(cb, cn, 0)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with trace.profile(logdir):
-            with trace.annotate("encode_blocks"):
-                with trace.annotate("candidates"):
-                    so8, so4a, so4b = K.candidates(cb, cn)
-                with trace.annotate("lz4_match"):
-                    mlen, moff = K.match_lengths(cb, cn, so8, so4a, so4b, 0)
-                with trace.annotate("lz4_parse"):
-                    st = K.parse(mlen)
-                with trace.annotate("lz4_geometry"):
-                    geo = K.geometry(mlen, moff, st, cn)
-                with trace.annotate("lz4_emit"):
-                    out_t, used_t = K.emit(cb, moff, geo)
-                torch.cuda.synchronize()
-        t_traced = time.perf_counter() - t
-        if not (torch.equal(out_t, want_out) and torch.equal(used_t, want_used)):
-            raise AssertionError("the traced encoder's output differs from encode_blocks'")
-        share = busy_share(logdir, "encode_blocks")
-    finally:
-        shutil.rmtree(logdir)
-    if share["kernels"] == 0:
-        raise AssertionError("the trace of encode_blocks holds no kernel")
+    want_out, want_used = K.encode_blocks(cb, cn, 0)
+    (out_t, used_t), share, t_traced = traced_encode(cb, cn, 0, _build.BUILD)
+    if not (torch.equal(out_t, want_out) and torch.equal(used_t, want_used)):
+        raise AssertionError("the traced encoder's output differs from encode_blocks'")
     log(f"traced encode_blocks (32 MiB, W=0; host clock with the profiler {t_traced:.3f} s): "
         f"annotated window {share['window_ms']:.3f} ms, device busy {share['busy_ms']:.3f} ms "
-        f"({share['kernels']} kernels), idle share "
-        f"{1 - share['busy_ms'] / share['window_ms']:.4f}; stages on the device (ms): "
-        f"{ {k: round(v, 3) for k, v in share['device_spans_ms'].items()} }")
+        f"({share['kernels']} kernels), idle share {share['idle_share']:.4f}; stages on the "
+        f"device (ms): { {k: round(v, 3) for k, v in share['device_spans_ms'].items()} }; "
+        f"longest idle gaps (start, ms) {share['idle_gaps_ms']}; "
+        f"{share['segments_allocated']} device segments allocated in it")
+    del out_t, used_t, want_out, want_used
+
+    # 7. the benchmark, bench_torch.py, in a process of its own
+    torch.cuda.empty_cache()
+    t = time.time()
+    r = subprocess.run([sys.executable, str(root / "bench_torch.py")], cwd=root,
+                       env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True,
+                       text=True, timeout=BENCH_TIMEOUT_S)
+    if r.returncode != 0 or not r.stdout.strip():
+        raise AssertionError(f"bench_torch.py exit {r.returncode}:\n{r.stderr[-4000:]}")
+    bench = json.loads(r.stdout.strip().splitlines()[-1])
+    log(f"bench_torch.py in {time.time() - t:.1f} s (host clock):")
+    log(json.dumps(bench))
+    d = bench["detail"]
+    if bench["metric"] != "lz4_encode_MBps_per_chip" or d["device_ratio"] != CORPUS_RATIO:
+        raise AssertionError(f"bench_torch.py: metric {bench['metric']}, device_ratio "
+                             f"{d['device_ratio']}, expected {CORPUS_RATIO}")
+    if d["verified"] != f"all {cb.shape[0]} blocks bit-exact round-trip":
+        raise AssertionError(f"bench_torch.py verified {d['verified']!r}")
+    if (d["device"], d["power_limit_W"]) != (card_name, float(power_limit.split()[0])):
+        raise AssertionError(f"bench_torch.py ran on {d['device']} at {d['power_limit_W']} W, "
+                             f"phase 1 on {card_name}, {power_limit}")
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 from tests.conftest import REF_7ZZ, have_ref  # noqa: E402
+from tpu7z.models.lz4 import frame as jframe  # noqa: E402
 from tpu7z.parallel.mesh import make_mesh  # noqa: E402
 from tpu7z.parallel.sharded import (  # noqa: E402
     shard_compress_lz4_device as jax_frame)
@@ -103,6 +104,18 @@ def test_test_and_extract_round_trip(workdir, want, capsys):
     assert (workdir / "out").read_bytes() == _input()
 
 
+def test_test_and_extract_a_linked_block_archive(workdir, capsys):
+    """A frame of linked blocks with block checksums, as tpu7z writes one
+    (`compress_frame(block_independence=False, block_checksum=True)`)."""
+    framed = jframe.compress_frame(_input(), block_size=1 << 16, block_checksum=True,
+                                   block_independence=False)
+    (workdir / "linked.lz4").write_bytes(framed)
+    assert main(["t", "linked.lz4"]) == 0
+    assert capsys.readouterr().out == "type=lz4 files=1\nEverything is Ok\n"
+    assert main(["x", "linked.lz4", "-odest"]) == 0
+    assert (workdir / "dest" / "linked").read_bytes() == _input()
+
+
 def test_test_reports_a_corrupt_frame(workdir, want, capsys):
     bad = bytearray(want)
     bad[len(bad) // 2] ^= 0xFF
@@ -118,7 +131,7 @@ def test_test_reports_a_corrupt_frame(workdir, want, capsys):
      "-mdev: the device coder writes lz4 only, not zstd"),
     (["a", "-t7z", "out.7z", "input.bin"], "-t7z: the port writes only .lz4"),
     (["a", "-tlz4", "out.lz4", "input.bin"],
-     "-tlz4 without -mdev: the port has no host LZ4 encoder"),
+     "-tlz4 without -mdev: the port's CLI encodes only with the device coder"),
     (["a", "-tlz4", "-mdev", "-mx9", "out.lz4", "input.bin"],
      "switch -mx9 is not served by the port"),
     (["a", "-tlz4", "-mdev", "out.lz4", "input.bin", "input.bin"],

@@ -1,7 +1,10 @@
-"""The port's one-device .lz4 frame against the JAX package, and the
-port's package boundaries: no JAX or tpu7z import, no silent CPU."""
+"""The port's one-device .lz4 frame against the JAX package, its frame
+decoder against tpu7z's on every kind of frame tpu7z writes or accepts,
+and the port's package boundaries: no JAX or tpu7z import, no silent
+CPU."""
 
 import ast
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -13,10 +16,12 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 from tpu7z.models.lz4 import frame as jframe  # noqa: E402
+from tpu7z.ops.hashing import xxh32_fast  # noqa: E402
 from tpu7z.parallel.mesh import make_mesh  # noqa: E402
 from tpu7z.parallel.sharded import (  # noqa: E402
     shard_compress_lz4_device as jax_frame)
 from tpu7z.utils.corpus import make_corpus as jax_corpus  # noqa: E402
+from tpu7z.utils.errors import CorruptError as JCorruptError  # noqa: E402
 from tpu7z_torch.models.lz4 import frame as tframe  # noqa: E402
 from tpu7z_torch.parallel import sharded  # noqa: E402
 from tpu7z_torch.utils.corpus import make_corpus  # noqa: E402
@@ -77,9 +82,129 @@ def test_decoder_rejects_bad_frames():
         tframe.decompress(good + b"\0")              # trailing bytes
 
 
+MIXED = make_corpus(2 << 20)
+MIXED = MIXED[700_000:1_000_000] + MIXED[1_500_000:1_800_000]
+CONTENT = {"size_and_checksum": (True, True), "checksum": (True, False),
+           "size": (False, True), "neither": (False, False)}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_frame(independent, block_checksum, content, block_size):
+    checksum, size = CONTENT[content]
+    return jframe.compress_frame(MIXED, block_size=block_size, content_checksum=checksum,
+                                 content_size=size, block_checksum=block_checksum,
+                                 block_independence=independent)
+
+
+@pytest.mark.parametrize("verify", [True, False])
+@pytest.mark.parametrize("block_size", [1 << 16, 1 << 18, 1 << 20, 1 << 22])
+@pytest.mark.parametrize("content", CONTENT)
+@pytest.mark.parametrize("block_checksum", [False, True], ids=["no_bc", "bc"])
+@pytest.mark.parametrize("independent", [True, False], ids=["independent", "linked"])
+def test_decoder_equals_tpu7z_on_its_frames(independent, block_checksum, content,
+                                            block_size, verify):
+    """Linked and independent blocks, block checksums, content checksum and
+    size on and off, block sizes 64 KiB to 4 MiB: both decoders give the
+    input, with and without verifying the checksums."""
+    framed = _jax_frame(independent, block_checksum, content, block_size)
+    want = jframe.decompress(framed, verify_checksums=verify)
+    assert want == MIXED
+    assert tframe.decompress(framed, verify_checksums=verify) == want
+
+
+@pytest.mark.parametrize("block_size", [1000, 4096])
+@pytest.mark.parametrize("data", ["repeat", "mixed"])
+def test_decoder_equals_tpu7z_on_small_linked_blocks(data, block_size):
+    """Linked blocks shorter than the 64 KiB window: a block's matches
+    reach back over several blocks before it."""
+    payload = b"abcdef" * 10000 if data == "repeat" else MIXED[:200_000]
+    framed = jframe.compress_frame(payload, block_size=block_size, block_independence=False)
+    assert tframe.decompress(framed) == jframe.decompress(framed) == payload
+
+
+def _skippable(magic_low, payload):
+    return ((tframe.MAGIC_SKIPPABLE_MIN + magic_low).to_bytes(4, "little")
+            + len(payload).to_bytes(4, "little") + payload)
+
+
+@pytest.mark.parametrize("verify", [True, False])
+def test_decoder_equals_tpu7z_on_frames_between_skippable_ones(verify):
+    """Several frames, linked and independent, with skippable frames between
+    them and a skippable frame cut short at the end, which tpu7z takes as
+    the end of the input."""
+    linked = _jax_frame(False, True, "size_and_checksum", 1 << 16)
+    plain = _jax_frame(True, False, "neither", 1 << 18)
+    src = (_skippable(0, b"sizes") + linked + _skippable(15, b"") + plain
+           + _skippable(7, bytes(300)) + linked)
+    cut = src + _skippable(3, bytes(100))[:18]
+    for data in (src, cut):
+        want = jframe.decompress(data, verify_checksums=verify)
+        assert want == MIXED * 3
+        assert tframe.decompress(data, verify_checksums=verify) == want
+    with pytest.raises(JCorruptError):
+        jframe.decompress(src + cut[-18:-12], verify_checksums=verify)
+    with pytest.raises(tframe.CorruptError):
+        tframe.decompress(src + cut[-18:-12], verify_checksums=verify)
+
+
+def _with_checksum_byte(framed, at):
+    bad = bytearray(framed)
+    bad[at] ^= 0x40
+    return bytes(bad)
+
+
+@pytest.mark.parametrize("where", ["block_checksum", "content_checksum", "header_checksum"])
+def test_one_corrupt_checksum_byte_raises_in_both(where):
+    framed = _jax_frame(False, True, "size_and_checksum", 1 << 16)
+    if where == "block_checksum":
+        first = int.from_bytes(framed[15:19], "little") & 0x7FFFFFFF
+        bad = _with_checksum_byte(framed, 19 + first + 2)
+    elif where == "content_checksum":
+        bad = _with_checksum_byte(framed, len(framed) - 1)
+    else:
+        bad = _with_checksum_byte(framed, 14)
+    name = where.replace("_", " ")
+    with pytest.raises(JCorruptError, match=name):
+        jframe.decompress(bad)
+    with pytest.raises(tframe.CorruptError, match=name):
+        tframe.decompress(bad)
+    assert tframe.decompress(bad, verify_checksums=False) == MIXED
+    assert jframe.decompress(bad, verify_checksums=False) == MIXED
+
+
+def _descriptor(framed, flg_or=0, flg_and=0xFF, bd_or=0, bd_and=0xFF):
+    """`framed` (a frame with content size) with its FLG and BD bits changed
+    and its header checksum made anew."""
+    desc = bytearray(framed[4:14])
+    desc[0] = (desc[0] & flg_and) | flg_or
+    desc[1] = (desc[1] & bd_and) | bd_or
+    return framed[:4] + bytes(desc) + bytes([(xxh32_fast(bytes(desc)) >> 8) & 0xFF]) + framed[15:]
+
+
+@pytest.mark.parametrize("bits,ok", [
+    (dict(flg_or=0x02), True),                 # FLG reserved bit 1
+    (dict(bd_or=0x80), True),                  # BD reserved bit 7
+    (dict(bd_or=0x0F), True),                  # BD reserved bits 3-0
+    (dict(flg_and=0x3F), False),               # version 00
+    (dict(flg_or=0xC0), False),                # version 11
+    (dict(flg_or=0x01), False),                # dictionary ID
+    (dict(bd_and=0x8F, bd_or=0x30), False),    # block size code 3
+    (dict(bd_and=0x8F), False),                # block size code 0
+])
+def test_descriptor_bits_as_in_tpu7z(bits, ok):
+    framed = _descriptor(_jax_frame(True, False, "size_and_checksum", 1 << 16), **bits)
+    if ok:
+        assert tframe.decompress(framed) == jframe.decompress(framed) == MIXED
+    else:
+        with pytest.raises(JCorruptError):
+            jframe.decompress(framed)
+        with pytest.raises(tframe.CorruptError):
+            tframe.decompress(framed)
+
+
 def _port_sources():
     files = sorted((REPO / "tpu7z_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
 
 
 def test_port_imports_neither_jax_nor_tpu7z():
@@ -99,10 +224,11 @@ def test_port_imports_neither_jax_nor_tpu7z():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, tpu7z_torch.parallel.sharded, "
             "tpu7z_torch.ops.lz4_cuda, tpu7z_torch.ops.match, "
-            "tpu7z_torch.ops.sort_cuda, "
+            "tpu7z_torch.ops.sort_cuda, tpu7z_torch.models.lz4.block, "
             "tpu7z_torch.models.lz4.torch_backend, tpu7z_torch.entry, "
             "tpu7z_torch.parallel.distributed, tpu7z_torch.parallel.progress, "
-            "tpu7z_torch.cli.main, tpu7z_torch.utils.trace; "
+            "tpu7z_torch.cli.main, tpu7z_torch.utils.trace, "
+            "tpu7z_torch.utils.timing, bench_torch, chip_smoke; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'tpu7z')); "
             "print(bad); sys.exit(1 if bad else 0)")

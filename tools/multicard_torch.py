@@ -34,22 +34,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 CORPUS_BYTES = 32 << 20
 
 
-def _median_ms(fn, reps=5):
-    """Median CUDA-event milliseconds of `fn` after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def encode_rank(device: str, size: int, reps: int = 5) -> dict:
     """One rank's work over the default process group: the frame's digest
     and this rank's times."""
@@ -58,6 +42,7 @@ def encode_rank(device: str, size: int, reps: int = 5) -> dict:
     from tpu7z_torch.ops import lz4_cuda
     from tpu7z_torch.parallel import distributed, sharded
     from tpu7z_torch.utils.corpus import make_corpus
+    from tpu7z_torch.utils.timing import timed
 
     corpus = make_corpus(size)
     group = distributed.global_mesh()
@@ -75,7 +60,7 @@ def encode_rank(device: str, size: int, reps: int = 5) -> dict:
     nb = max(1, -(-len(corpus) // lz4_cuda.BLOCK))
     k = -(-nb // world)
     blocks, ns = sharded.split_blocks(corpus, device, rank * k, k)
-    span_ms = (_median_ms(lambda: lz4_cuda.encode_blocks(blocks, ns, 0))
+    span_ms = (timed(lambda: lz4_cuda.encode_blocks(blocks, ns, 0))
                if device == "cuda" else None)
     return {"rank": rank, "sha256": hashlib.sha256(frame).hexdigest(),
             "bytes": len(frame), "call_s": statistics.median(calls),

@@ -88,8 +88,8 @@ def _add(opts: Options, args, device) -> int:
         raise UsageError(f"-t{atype or '?'}: the port writes only .lz4, with "
                          f"-mdev; {ELSEWHERE}")
     if not dev:
-        raise UsageError(f"-tlz4 without -mdev: the port has no host LZ4 "
-                         f"encoder; add -mdev, or {ELSEWHERE}")
+        raise UsageError(f"-tlz4 without -mdev: the port's CLI encodes only "
+                         f"with the device coder; add -mdev, or {ELSEWHERE}")
     if opts.stdin:
         if inputs:
             raise UsageError("a -si: no input files with -si")

@@ -1,14 +1,25 @@
-"""LZ4 raw block decoder and sequence emitter (host numpy).
+"""The LZ4 raw block codec on the host: decoders and the sequence emitter.
 
 Format (lz4_Block_format):
   sequence := token(1) [litlen-ext 255*] literals [offset u16le]
               [matchlen-ext 255*]
   token    := (litlen:4 | matchlen-4:4), 15 in a nibble => extension bytes
+
+Two decoders with one contract: `decompress_block`, which decodes through
+the host library built from csrc/lz4_host.cpp whenever the decoded size or
+a cap on it is known, and `decompress_block_ref`, its plain numpy twin,
+which serves calls that know neither. `compress_block_native` is the same
+library's greedy encoder, the host tier that benchmarks set beside the
+device encoder. A failed build of the library raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+
+from ...ops import _build
 
 MIN_MATCH = 4
 
@@ -17,15 +28,66 @@ class CorruptError(ValueError):
     """The input violates the LZ4 format."""
 
 
+_ERRORS = {-1: "truncated input", -2: "invalid offset", -3: "output overflow"}
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.load("lz4_host")
+        lib.lz4_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                   ctypes.c_size_t, ctypes.c_size_t]
+        lib.lz4_decode.restype = ctypes.c_longlong
+        for name in ("lz4_encode", "lz4_encode_region"):
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_char_p, ctypes.c_size_t]
+                           + [ctypes.c_size_t] * (name == "lz4_encode_region")
+                           + [ctypes.c_void_p, ctypes.c_size_t])
+            fn.restype = ctypes.c_longlong
+        _lib = lib
+    return _lib
+
+
+def _decode_native(src: bytes, window: bytes, cap: int) -> bytes:
+    """Decode `src` after `window` (the output a linked block may refer
+    back into) into at most `cap` bytes, by the host library."""
+    w = len(window)
+    buf = np.empty(w + cap, dtype=np.uint8)
+    buf[:w] = np.frombuffer(window, dtype=np.uint8)
+    r = _library().lz4_decode(src, len(src), buf.ctypes.data, w, w + cap)
+    if r < 0:
+        raise CorruptError(f"lz4: {_ERRORS[r]}")
+    return buf[w:w + r].tobytes()
+
+
 def decompress_block(src, dst_size: int | None = None,
-                     cap_hint: int | None = None) -> bytes:
-    """Decode one raw LZ4 block: a host loop over sequences with
-    vectorized literal and match copies (period trick for overlaps).
+                     cap_hint: int | None = None, *, window=b"") -> bytes:
+    """Decode one raw LZ4 block.
 
     dst_size: the exact decoded size, enforced. cap_hint: an upper bound
-    only, such as the frame's block size.
+    only, such as the frame's block size. Given either, the block decodes
+    through the host library; given neither, through
+    `decompress_block_ref`. window: the output before this block (at most
+    the last 64 KiB of a linked-block frame), which matches may reach
+    back into.
     """
+    src, window = bytes(src), bytes(window)
+    if dst_size is None and cap_hint is None:
+        return decompress_block_ref(src, window=window)
+    out = _decode_native(src, window, dst_size if dst_size is not None else cap_hint)
+    if dst_size is not None and len(out) != dst_size:
+        raise CorruptError(f"lz4: decoded {len(out)} bytes, expected {dst_size}")
+    return out
+
+
+def decompress_block_ref(src, dst_size: int | None = None,
+                         cap_hint: int | None = None, *, window=b"") -> bytes:
+    """`decompress_block` as a host loop over sequences with vectorized
+    literal and match copies (period trick for overlaps): the plain twin
+    of the library's decoder, raising where it raises."""
     s = np.frombuffer(bytes(src), dtype=np.uint8)
+    hist = np.frombuffer(bytes(window), dtype=np.uint8)
     n = s.size
     if dst_size is not None:
         cap = dst_size
@@ -33,9 +95,12 @@ def decompress_block(src, dst_size: int | None = None,
         cap = cap_hint
     else:
         cap = max(64, n * 255)
+    w = hist.size
+    cap += w
     out = np.empty(cap, dtype=np.uint8)
+    out[:w] = hist
     ip = 0
-    op = 0
+    op = w
     while ip < n:
         token = int(s[ip]); ip += 1
         litlen = token >> 4
@@ -82,9 +147,23 @@ def decompress_block(src, dst_size: int | None = None,
             reps = -(-mlen // offset)
             out[op:op + mlen] = np.tile(period, reps)[:mlen]
         op += mlen
-    if dst_size is not None and op != dst_size:
-        raise CorruptError(f"lz4: decoded {op} bytes, expected {dst_size}")
-    return out[:op].tobytes()
+    if dst_size is not None and op - w != dst_size:
+        raise CorruptError(f"lz4: decoded {op - w} bytes, expected {dst_size}")
+    return out[w:op].tobytes()
+
+
+def compress_block_native(src) -> bytes:
+    """One independent LZ4 block of `src` by the host library's greedy
+    encoder (a 16-bit table of 5-byte hashes, the host tier): the bytes of
+    tpu7z's host fast path, `compress_block(src)` at accel 1 and hashlog
+    16. Nothing on the device path calls it."""
+    raw = bytes(src)
+    cap = len(raw) + len(raw) // 255 + 64
+    dst = np.empty(cap, dtype=np.uint8)
+    r = _library().lz4_encode(raw, len(raw), dst.ctypes.data, cap)
+    if r <= 0:
+        raise RuntimeError(f"lz4_encode failed on {len(raw)} bytes")
+    return dst[:r].tobytes()
 
 
 def merge_adjacent_matches(mpos: np.ndarray, mlen: np.ndarray,

@@ -1,18 +1,23 @@
 """The .lz4 frames the port writes, and their decoder.
 
 Layout (LZ4 Frame format): magic 0x184D2204 (u32le); FLG (version 01 in
-bits 7-6, independent blocks in bit 5, content size in bit 3, content
-checksum in bit 2); BD (block size code in bits 6-4: 4 = 64 KiB, 5 = 256
-KiB, 6 = 1 MiB, 7 = 4 MiB); the content size u64le if flagged; HC =
-(xxh32(FLG .. content size) >> 8) & 0xFF; then blocks, each a u32le size
-(bit 31 set: stored uncompressed) and its bytes; a zero u32 EndMark; the
-content checksum xxh32(content) u32le if flagged.
+bits 7-6, independent blocks in bit 5, block checksums in bit 4, content
+size in bit 3, content checksum in bit 2, dictionary ID in bit 0); BD
+(block size code in bits 6-4: 4 = 64 KiB, 5 = 256 KiB, 6 = 1 MiB, 7 = 4
+MiB); the content size u64le if flagged; HC = (xxh32(FLG .. content
+size) >> 8) & 0xFF; then blocks, each a u32le size (bit 31 set: stored
+uncompressed), its bytes and, if flagged, their xxh32 u32le; a zero u32
+EndMark; the content checksum xxh32(content) u32le if flagged. Where
+bit 5 is clear, the blocks are linked: a block's matches may reach into
+the last 64 KiB of the content before it.
 
 The port writes two descriptors: FLG 0x60 BD 0x40 (`HEADER`, the device
 encoder's frame: no checksums, no content size) and FLG 0x6C (independent
 blocks, content size and content checksum) from the device match finder.
 Skippable frames (magic 0x184D2A50..5F, a u32le size and that many bytes)
-carry the skippable container's sizes; the decoder skips them.
+carry the skippable container's sizes; the decoder skips them. The
+decoder takes every frame tpu7z's takes: reserved bits are ignored, and
+a dictionary ID is refused, as there.
 """
 
 from __future__ import annotations
@@ -30,9 +35,11 @@ HEADER = (MAGIC.to_bytes(4, "little") + DESCRIPTOR
 
 FLG_VERSION = 0x40
 FLG_INDEPENDENT = 1 << 5
+FLG_BLOCK_CHECKSUM = 1 << 4
 FLG_CONTENT_SIZE = 1 << 3
 FLG_CONTENT_CHECKSUM = 1 << 2
-_FLG_KNOWN = 0xC0 | FLG_INDEPENDENT | FLG_CONTENT_SIZE | FLG_CONTENT_CHECKSUM
+FLG_DICT_ID = 1
+WINDOW = 1 << 16  # how far back a linked block's matches may reach
 
 _BD_SIZES = {4: 1 << 16, 5: 1 << 18, 6: 1 << 20, 7: 1 << 22}
 
@@ -68,28 +75,30 @@ def _u32(src: bytes, pos: int, what: str) -> int:
     return int.from_bytes(src[pos:pos + 4], "little")
 
 
-def _frame(src: bytes, pos: int):
-    """Parse the frame whose magic is at `pos`. Returns (content size or
-    None, block size, [(stored, payload)], content checksum or None, end)."""
+def _frame(src: bytes, pos: int, verify_checksums: bool):
+    """Parse the frame whose magic is at `pos`, verifying its header and
+    block checksums if asked. Returns (flags, block size, content size or
+    None, [(stored, payload)], content checksum or None, end)."""
     pos += 4
-    if pos + 2 > len(src):
+    if pos + 3 > len(src):
         raise CorruptError("lz4 frame: truncated descriptor")
     flg, bd = src[pos], src[pos + 1]
-    if flg & 0xC0 != FLG_VERSION or flg & ~_FLG_KNOWN or bd & 0x8F:
-        raise CorruptError(f"lz4 frame: unsupported descriptor {flg:#x} {bd:#x}")
-    if not flg & FLG_INDEPENDENT:
-        raise CorruptError("lz4 frame: linked blocks are not supported")
-    if (bd >> 4) not in _BD_SIZES:
-        raise CorruptError(f"lz4 frame: bad block size code {bd >> 4}")
-    bsize = _BD_SIZES[bd >> 4]
+    if flg >> 6 != 1:
+        raise CorruptError(f"lz4 frame: unsupported version {flg >> 6}")
+    code = (bd >> 4) & 7
+    if code not in _BD_SIZES:
+        raise CorruptError(f"lz4 frame: bad block size code {code}")
+    if flg & FLG_DICT_ID:
+        raise CorruptError("lz4 frame: dictionaries not supported")
+    bsize = _BD_SIZES[code]
     dlen = 2 + (8 if flg & FLG_CONTENT_SIZE else 0)
-    if pos + dlen + 1 > len(src):
-        raise CorruptError("lz4 frame: truncated descriptor")
     desc = src[pos:pos + dlen]
-    if (xxh32(desc) >> 8) & 0xFF != src[pos + dlen]:
+    pos += dlen
+    if pos >= len(src):
+        raise CorruptError("lz4 frame: truncated header checksum")
+    if verify_checksums and (xxh32(desc) >> 8) & 0xFF != src[pos]:
         raise CorruptError("lz4 frame: header checksum mismatch")
-    size = int.from_bytes(desc[2:], "little") if flg & FLG_CONTENT_SIZE else None
-    pos += dlen + 1
+    pos += 1
     blocks = []
     while True:
         word = _u32(src, pos, "block header")
@@ -97,55 +106,73 @@ def _frame(src: bytes, pos: int):
         if word == 0:
             break
         n = word & 0x7FFFFFFF
-        if n > bsize or pos + n > len(src):
-            raise CorruptError("lz4 frame: bad block size")
-        blocks.append((bool(word & 0x80000000), src[pos:pos + n]))
+        if pos + n > len(src):
+            raise CorruptError("lz4 frame: truncated block")
+        payload = src[pos:pos + n]
         pos += n
+        if flg & FLG_BLOCK_CHECKSUM:
+            checksum = _u32(src, pos, "block checksum")
+            pos += 4
+            if verify_checksums and xxh32_native(payload) != checksum:
+                raise CorruptError("lz4 frame: block checksum mismatch")
+        blocks.append((bool(word & 0x80000000), payload))
     checksum = None
     if flg & FLG_CONTENT_CHECKSUM:
         checksum = _u32(src, pos, "content checksum")
         pos += 4
-    return size, bsize, blocks, checksum, pos
+    size = int.from_bytes(desc[2:], "little") if flg & FLG_CONTENT_SIZE else None
+    return flg, bsize, size, blocks, checksum, pos
 
 
-def _frames(src: bytes):
-    """Yield (content size, block size, blocks, checksum) of each .lz4
-    frame in `src`, skipping skippable frames; bytes that are no frame
-    raise CorruptError."""
+def _frames(src: bytes, verify_checksums: bool = True):
+    """Yield (flags, block size, content size or None, blocks, content
+    checksum or None) of each .lz4 frame in `src`, skipping skippable
+    frames; bytes that are no frame raise CorruptError. As in tpu7z, a
+    skippable frame whose size runs past the end of `src` ends it."""
     pos = 0
     while pos < len(src):
         magic = _u32(src, pos, "magic")
         if MAGIC_SKIPPABLE_MIN <= magic <= MAGIC_SKIPPABLE_MAX:
-            end = pos + 8 + _u32(src, pos + 4, "skippable frame")
-            if end > len(src):
-                raise CorruptError("lz4 frame: truncated skippable frame")
-            pos = end
+            pos += 8 + _u32(src, pos + 4, "skippable frame")
             continue
         if magic != MAGIC:
             raise CorruptError(f"lz4 frame: bad magic {magic:#x}")
-        size, bsize, blocks, checksum, pos = _frame(src, pos)
-        yield size, bsize, blocks, checksum
+        *parsed, pos = _frame(src, pos, verify_checksums)
+        yield parsed
 
 
 def iter_blocks(src: bytes):
     """Yield (stored, payload) for each block of the frames in `src`."""
-    for _, _, blocks, _ in _frames(src):
+    for _, _, _, blocks, _ in _frames(src):
         yield from blocks
 
 
-def decode_block(stored: bool, payload: bytes, bsize: int) -> bytes:
-    if stored:
-        return bytes(payload)
-    return lz4block.decompress_block(payload, cap_hint=bsize)
+def _decode_frame(flg: int, bsize: int, blocks) -> bytes:
+    """The content of one frame's blocks: each independent block decodes
+    alone into at most `bsize` bytes; a linked block also sees the last
+    64 KiB of the content before it."""
+    linked = not flg & FLG_INDEPENDENT
+    parts, window = [], b""
+    for stored, payload in blocks:
+        if stored:
+            data = bytes(payload)
+        else:
+            data = lz4block.decompress_block(payload, cap_hint=bsize, window=window)
+        parts.append(data)
+        if linked:
+            window = (window + data)[-WINDOW:]
+    return b"".join(parts)
 
 
-def decompress(src: bytes) -> bytes:
-    """Decode the frames in `src` (the port's, or any with independent
-    blocks), verifying each content checksum and content size."""
+def decompress(src: bytes, verify_checksums: bool = True) -> bytes:
+    """Decode the frames in `src`: independent or linked blocks, with or
+    without block checksums, content size and content checksum. The
+    checksums (header, block, content) are verified unless
+    `verify_checksums` is false; the content size always is."""
     parts = []
-    for size, bsize, blocks, checksum in _frames(src):
-        data = b"".join(decode_block(s, p, bsize) for s, p in blocks)
-        if checksum is not None and xxh32_native(data) != checksum:
+    for flg, bsize, size, blocks, checksum in _frames(src, verify_checksums):
+        data = _decode_frame(flg, bsize, blocks)
+        if verify_checksums and checksum is not None and xxh32_native(data) != checksum:
             raise CorruptError("lz4 frame: content checksum mismatch")
         if size is not None and len(data) != size:
             raise CorruptError("lz4 frame: content size mismatch")

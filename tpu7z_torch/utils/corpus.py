@@ -16,6 +16,10 @@ import math
 import numpy as np
 
 _INT64_MAX = float(2**63 - 1)
+# sha256 of make_corpus(32 MiB), and the device encoder's ratio over those
+# bytes at W = 0 (bytes / sum of min(used, 65540), to three places)
+CORPUS_SHA256 = "05224620a507811d6a855ddf98cc7f0a4a1ede748fba0f6f8747ddb639b6cb2a"
+CORPUS_RATIO = 1.818
 
 _WORDS = (
     "the of and a to in is was he for it with as his on be at by i this had "
