@@ -30,9 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. the main path: `shard_compress_lz4_device` over the 32 MiB corpus on
      the card, launch counts per kernel (each encoder kernel once, two
      row sorts), the frame decoded by the port's decoder (its blocks by
-     the native host decoder, csrc/lz4_host.cpp, timed; every 16th block
-     also by its numpy twin `decompress_block_ref`, and the two compared),
-     and the compression ratio checked;
+     the native host decoder, csrc/lz4_host.cpp; every 16th block also by
+     its numpy twin `decompress_block_ref`, and the two compared), and the
+     compression ratio checked; the decode timed serially, block-parallel
+     in 8 threads (`decompress_lz4`) and as the library's calls alone;
   4. the match-finder path, each part with the counts set to 0 before it:
      `find_matches` over the corpus with the kernel against the same with
      the plain sort, as 512 rows of 64 KiB and as 8 rows of 4 MiB at
@@ -66,7 +67,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. the benchmark: `python3 bench_torch.py` in a process of its own (at
      most 600 s); its result line is printed, and must name the metric,
      read device_ratio 1.818 with every block verified, and name the card
-     and power limit of phase 1.
+     and power limit of phase 1;
+  8. zstd: the host tier (csrc/zstd_enc.cpp, zstd_dec.cpp) over the corpus
+     at levels 3 and 5, one call and the job model at 4 workers (the
+     frame equal to 1 worker's and to `frame.compress(threads=4)`), every
+     frame decoded serially and by `decompress_zstd`, and eight 4 MiB
+     frames decoded serially and in 8 threads; the tensor parse
+     (`find_sequences_windowed`, hashlog 17, window_log 21, depth 3, lazy
+     1; 3 MiB in 1 MiB segments, and 8 MiB in the 4 MiB segments the
+     encoder below uses) on the card equal to its CPU run; the
+     corpus through the tensor encoder on the card (level 5, window_log
+     21: what `a -tzstd -m0=zstd:wlog=21` runs), one row sort a segment
+     counted, its stages traced, its frame decoded; and `sort_rows` at
+     this path's row shape against its plain version, timed.
 The timing helpers are tpu7z_torch/utils/timing.py's, shared with
 bench_torch.py. The line before the last is the per-kernel JSON; the last
 line is the device JSON. Imports nothing of JAX or tpu7z.
@@ -271,6 +284,174 @@ class Stages:
                         + 4 * count(g["ml_ext"]) + 4 * 2 * B * P.NROWS
                         + scal + B * P.OUT_CAP,
         }
+
+
+def best(fn, reps=3):
+    """(result, least host seconds) of `reps` calls of `fn`."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t)
+    return out, min(times)
+
+
+def lz4_decode_times(framed, corpus, frame, block, block_size):
+    """The main path's frame decoded serially (`frame.decompress`) and block
+    by block in 8 threads (`decompress_lz4`), each checked; and the
+    library's decode calls alone over the same blocks, sliced beforehand,
+    which leaves the Python around them (host clock, best of 3)."""
+    from tpu7z_torch.parallel import decode
+
+    got, serial_s = best(lambda: frame.decompress(framed))
+    if got != corpus:
+        raise AssertionError("the frame does not decode to the input")
+    got, threads_s = best(lambda: decode.decompress_lz4(framed, threads=8))
+    if got != corpus:
+        raise AssertionError("decompress_lz4 (8 threads) does not decode the frame to the input")
+    payloads = [p for stored, p in frame.iter_blocks(framed) if not stored]
+    _, library_s = best(lambda: [block._decode_native(p, b"", block_size) for p in payloads])
+    log(f"32 MiB frame decoded (host clock, best of 3): serially by frame.decompress "
+        f"{serial_s:.4f} s, by decompress_lz4 in 8 threads {threads_s:.4f} s; the library's "
+        f"{len(payloads)} block decodes alone {library_s:.4f} s, so the Python around them "
+        f"{serial_s - library_s:.4f} s: equal")
+    return {"serial_s": serial_s, "threads8_s": threads_s, "library_s": library_s}
+
+
+def zstd_phase(corpus, dev, S, M, card_label):
+    """Phase 8, zstd: (a) the host tier over the corpus, (b) the tensor
+    parse on the card against the port's CPU run, (c) the corpus through
+    the tensor encoder on the card, its launches counted and its stages
+    timed, and the row sort at this path's shape against its plain
+    version. Returns the numbers for the kernels line and the log."""
+    from tpu7z_torch.models.zstd import compressor as ZC
+    from tpu7z_torch.models.zstd import frame as ZF
+    from tpu7z_torch.ops import hash_chain as HC
+    from tpu7z_torch.parallel import decode as PD
+    from tpu7z_torch.parallel import zstd_jobs as ZJ
+    from tpu7z_torch.utils import trace
+    from tpu7z_torch.utils.timing import timed, timed_launches
+
+    mb = len(corpus) / 1e6
+
+    # (a) the host tier: one frame at levels 3 and 5, by one call and by
+    # the job model at 4 workers, each decoded serially and frame-parallel
+    for level in (3, 5):
+        one, t_one = best(lambda: ZF.compress(corpus, level=level))
+        jobs4, t_jobs4 = best(lambda: ZJ.compress_sharded(corpus, level=level, workers=4))
+        jobs1, t_jobs1 = best(lambda: ZJ.compress_sharded(corpus, level=level, workers=1), 1)
+        if jobs4 != jobs1:
+            raise AssertionError(f"zstd level {level}: the job model's frame at 4 workers "
+                                 f"differs from 1 worker's")
+        if ZF.compress(corpus, level=level, threads=4) != jobs4:
+            raise AssertionError(f"zstd level {level}: frame.compress(threads=4) differs from "
+                                 f"compress_sharded(workers=4)")
+        for name, framed in (("one call", one), ("4 jobs", jobs4)):
+            got, t_dec = best(lambda: ZF.decompress(framed))
+            if got != corpus or PD.decompress_zstd(framed) != corpus:
+                raise AssertionError(f"zstd level {level} ({name}) does not decode to the input")
+            log(f"zstd host tier, level {level}, {name}: {len(framed)} bytes, ratio "
+                f"{len(corpus) / len(framed):.6f}; decoded {t_dec:.4f} s "
+                f"({mb / t_dec:.1f} MB/s), decompress_zstd equal")
+        log(f"zstd host tier, level {level} (host clock, best of 3; {card_label}): one call "
+            f"{t_one:.3f} s ({mb / t_one:.1f} MB/s, ratio {len(corpus) / len(one):.6f}); "
+            f"job model 4 workers {t_jobs4:.3f} s ({mb / t_jobs4:.1f} MB/s, ratio "
+            f"{len(corpus) / len(jobs4):.6f}), 1 worker {t_jobs1:.3f} s, same frame")
+    # frame-parallel decode: eight frames of 4 MiB back to back
+    frames = b"".join(ZF.compress(corpus[a:a + (4 << 20)], level=3)
+                      for a in range(0, len(corpus), 4 << 20))
+    got, t_serial = best(lambda: ZF.decompress(frames))
+    got8, t_par = best(lambda: PD.decompress_zstd(frames, threads=8))
+    if got != corpus or got8 != corpus:
+        raise AssertionError("eight concatenated zstd frames do not decode to the input")
+    log(f"zstd decode of 8 frames of 4 MiB ({len(frames)} bytes; host clock, best of 3): "
+        f"serial {t_serial:.4f} s ({mb / t_serial:.1f} MB/s), decompress_zstd 8 threads "
+        f"{t_par:.4f} s ({mb / t_par:.1f} MB/s)")
+
+    # (b) the tensor parse on the card against the port's CPU run: 3 MiB
+    # in 1 MiB segments (history crosses each join), and 8 MiB at (c)'s
+    # shape, 4 MiB segments behind 2 MiB of history (level 5's parameters)
+    for mib, seg_mib in ((3, 1), (8, 4)):
+        head = corpus[:mib << 20]
+        kw = dict(hashlog=17, window_log=21, depth=3, lazy=1, seg_size=seg_mib << 20)
+        t = time.perf_counter()
+        card = ZC.find_sequences_windowed(head, device=dev, **kw)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = ZC.find_sequences_windowed(head, device="cpu", **kw)
+        t_cpu = time.perf_counter() - t
+        for g, w, what in zip(card, cpu, ("mpos", "mlen", "moff")):
+            if g.device.type != "cuda" or not torch.equal(g.cpu(), w):
+                raise AssertionError(f"find_sequences_windowed {what} on the card differs "
+                                     f"from the CPU run ({mib} MiB, {seg_mib} MiB segments)")
+        log(f"find_sequences_windowed({mib} MiB, hashlog 17, window_log 21, depth 3, lazy 1, "
+            f"segments of {seg_mib} MiB): card {t_card:.3f} s, CPU {t_cpu:.3f} s (host "
+            f"clock); {card[0].numel()} matches, (mpos, mlen, moff) equal")
+        del card, cpu
+
+    # (c) the whole corpus through the tensor encoder on the card, what
+    # `a -tzstd -m0=zstd:wlog=21` runs: launches counted, stages traced
+    S.reset_launches()
+    HC.reset_steps()
+    trace.attach(keep_records=True)
+    trace.clear()
+    try:
+        t = time.perf_counter()
+        framed = ZC.compress(corpus, level=5, window_log=21, device=dev)
+        t_enc = time.perf_counter() - t
+        spans = {}
+        for r in trace.records():
+            spans[r["name"]] = spans.get(r["name"], 0.0) + r["seconds"]
+    finally:
+        trace.detach()
+        trace.clear()
+    launches = S.LAUNCHES["sort_rows"]
+    steps = dict(HC.STEPS)
+    segments = -(-len(corpus) // (1 << 22))
+    if launches != segments:
+        raise AssertionError(f"zstd tensor encoder: {launches} row sorts, expected one per "
+                             f"segment ({segments})")
+    t = time.perf_counter()
+    if ZF.decompress(framed) != corpus:
+        raise AssertionError("the tensor encoder's frame does not decode to the input")
+    t_dec = time.perf_counter() - t
+    log(f"zstd tensor encoder, corpus, level 5, window_log 21, on the card: {len(framed)} "
+        f"bytes, ratio {len(corpus) / len(framed):.6f}, {t_enc:.3f} s host clock "
+        f"({mb / t_enc:.2f} MB/s), {launches} sort_rows launches, probe steps {steps}; "
+        f"decoded natively in {t_dec:.4f} s: equal")
+    log(f"zstd tensor encoder stages (s, card synchronized at each span's ends): "
+        f"{ {k: round(v, 4) for k, v in sorted(spans.items())} }")
+
+    # the row sort at this path's shape: the segment at 4 MiB behind 2 MiB
+    # of history, hashlog 17, int32 keys and an int32 position payload
+    row = torch.from_numpy(np.frombuffer(corpus, np.uint8)[2 << 20:8 << 20].copy()).to(dev)
+    h = HC.hashes(HC.u32_at(row), 17)[None]
+    key, bb = M.hash_key(h, 17)
+    pos = torch.arange(h.shape[1], dtype=torch.int32, device=dev)[None].contiguous()
+    got = S.sort_rows(key, pos, begin_bit=bb)
+    want = S.sort_rows_ref(key, pos, begin_bit=bb)
+    err = max_abs_err([bits64(g) for g in got], [bits64(w) for w in want])
+    if err:
+        raise AssertionError(f"sort_rows differs from its plain version on the zstd path's "
+                             f"row: max abs err {err}")
+    ms = timed(lambda: S.sort_rows(key, pos, begin_bit=bb))
+    order_ms = timed(lambda: M.sort_order(h, 17))
+    outs, scratch = S.buffers(key, (pos,), bb)
+    kernel_ms = timed_launches(lambda: S._launch(key, (pos,), outs, scratch, bb))
+    plain_ms = timed(lambda: S.sort_rows_ref(key, pos, begin_bit=bb))
+    k64 = key.to(torch.int64) & 0xFFFFFFFF
+    lib_ms = timed(lambda: torch.sort(k64, dim=1, stable=True))
+    bound_ms = 2 * 2 * key.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"sort_rows on the zstd path's row {tuple(key.shape)} (int32 keys h << 14, int32 "
+        f"position payload, begin_bit {bb}): equal to its plain version; {ms:.3f} ms through "
+        f"the wrapper, {order_ms:.3f} ms as sort_order, launches alone {kernel_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms; plain {plain_ms:.3f} ms, torch.sort (int64, stable) "
+        f"{lib_ms:.3f} ms")
+    return {"launches": launches, "shape": list(key.shape), "begin_bit": bb, "ms": ms,
+            "sort_order_ms": order_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "max_abs_err": err,
+            "encoder_s": t_enc, "stages_s": spans, "probe_steps": steps}
 
 
 def sort_inputs(dev, corpus_blocks, corpus_ns, P, M):
@@ -574,11 +755,7 @@ def main() -> int:
             raise AssertionError(f"main path: {launches[k]} launches of {k}, expected 1")
     if launches["sort_rows"] != 2:
         raise AssertionError(f"main path: {launches['sort_rows']} row sorts, expected 2")
-    t = time.time()
-    if frame.decompress(framed) != corpus:
-        raise AssertionError("the frame does not decode to the input")
-    log(f"frame decoded by the port's decoder (native host blocks) in {time.time() - t:.3f} s: "
-        f"equal")
+    lz4_decode = lz4_decode_times(framed, corpus, frame, block, P.BLOCK)
     # the native decoder against its numpy twin on every 16th block
     checked = 0
     for i, (stored, payload) in enumerate(frame.iter_blocks(framed)):
@@ -895,6 +1072,16 @@ def main() -> int:
     if (d["device"], d["power_limit_W"]) != (card_name, float(power_limit.split()[0])):
         raise AssertionError(f"bench_torch.py ran on {d['device']} at {d['power_limit_W']} W, "
                              f"phase 1 on {card_name}, {power_limit}")
+    # 8. zstd: the host tier, the tensor parse and the tensor encoder
+    zstd = zstd_phase(corpus, dev, S, M, f"{card_name}, {power_limit}")
+    sort_entry = next(k for k in kernels if k["name"] == "sort_rows")
+    sort_entry["max_abs_err"] = max(sort_entry["max_abs_err"], zstd["max_abs_err"])
+    sort_entry["launches_by_path"] = {"lz4_device": launches["sort_rows"],
+                                      "zstd_tensor": zstd["launches"]}
+    sort_entry["zstd_path"] = {k: zstd[k] for k in (
+        "shape", "begin_bit", "ms", "sort_order_ms", "kernel_ms", "plain_ms", "library_ms",
+        "bound_ms")}
+
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 device verb: `a -tlz4 -mdev` and its other spellings write the bytes of
 tpu7z's `shard_compress_lz4_device` at make_mesh(1), which is what
 `python -m tpu7z.cli a -tlz4 -mdev` writes; `t` and `x` read them back;
-whatever the port does not serve exits with 2 and names tpu7z's CLI.
+whatever the port does not serve exits with 2 and names tpu7z's CLI
+(.zst and LZ4 without the device: test_torch_zstd_cli.py).
 The commands run in this process on the CPU (`main(..., device="cpu")`);
 run as a module with no card, the CLI fails instead of running on the CPU.
 """
@@ -130,14 +131,13 @@ def test_test_reports_a_corrupt_frame(workdir, want, capsys):
     (["a", "-tlz4", "-m0=zstd", "-mdev", "out.lz4", "input.bin"],
      "-mdev: the device coder writes lz4 only, not zstd"),
     (["a", "-t7z", "out.7z", "input.bin"], "-t7z: the port writes only .lz4"),
-    (["a", "-tlz4", "out.lz4", "input.bin"],
-     "-tlz4 without -mdev: the port's CLI encodes only with the device coder"),
-    (["a", "-tlz4", "-mdev", "-mx9", "out.lz4", "input.bin"],
-     "switch -mx9 is not served by the port"),
+    (["u", "out.lz4", "input.bin"], "command 'u' is not served by the port"),
+    (["a", "-tlz4", "-mdev", "-psecret", "out.lz4", "input.bin"],
+     "switch -psecret is not served by the port"),
     (["a", "-tlz4", "-mdev", "out.lz4", "input.bin", "input.bin"],
      "one input file"),
     (["l", "out.lz4"], "command 'l' is not served by the port"),
-    (["x", "input.bin"], "input.bin: the port reads .lz4 only"),
+    (["x", "input.bin"], "input.bin: the port reads .lz4 and .zst only"),
 ])
 def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
     assert main(args, device="cpu") == 2

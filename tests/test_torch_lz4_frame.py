@@ -208,6 +208,10 @@ def _port_sources():
 
 
 def test_port_imports_neither_jax_nor_tpu7z():
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    assert {"tpu7z_torch/models/zstd/compressor.py", "tpu7z_torch/ops/hash_chain.py",
+            "tpu7z_torch/parallel/zstd_jobs.py", "tpu7z_torch/parallel/decode.py",
+            "tpu7z_torch/utils/errors.py"} <= names
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -228,7 +232,12 @@ def test_importing_the_port_loads_no_jax():
             "tpu7z_torch.models.lz4.torch_backend, tpu7z_torch.entry, "
             "tpu7z_torch.parallel.distributed, tpu7z_torch.parallel.progress, "
             "tpu7z_torch.cli.main, tpu7z_torch.utils.trace, "
-            "tpu7z_torch.utils.timing, bench_torch, chip_smoke; "
+            "tpu7z_torch.utils.timing, tpu7z_torch.utils.errors, "
+            "tpu7z_torch.ops.hash_chain, tpu7z_torch.ops.bitstream, "
+            "tpu7z_torch.ops.bitchain, tpu7z_torch.ops.hashing, "
+            "tpu7z_torch.models.zstd.frame, tpu7z_torch.models.zstd.compressor, "
+            "tpu7z_torch.models.zstd.native, tpu7z_torch.parallel.zstd_jobs, "
+            "tpu7z_torch.parallel.decode, bench_torch, chip_smoke; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'tpu7z')); "
             "print(bad); sys.exit(1 if bad else 0)")

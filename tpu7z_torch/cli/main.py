@@ -1,19 +1,29 @@
-"""The port's command line: the device verb of tpu7z's CLI.
+"""The port's command line: tpu7z's CLI for .lz4 and .zst.
 
-    python -m tpu7z_torch.cli a -tlz4 -mdev archive.lz4 input
-    python -m tpu7z_torch.cli t archive.lz4
-    python -m tpu7z_torch.cli x archive.lz4 [-o{dir}]
+    python -m tpu7z_torch.cli a -tlz4 [-mdev] archive.lz4 input
+    python -m tpu7z_torch.cli a -tzstd [-mx{N}] [-mmt{N}] [-m0=zstd:wlog=N] archive.zst input
+    python -m tpu7z_torch.cli t archive.{lz4,zst} [-mmt{N}]
+    python -m tpu7z_torch.cli x archive.{lz4,zst} [-o{dir}] [-mmt{N}]
 
-`a -tlz4 -mdev` (also `-m0=lz4:dev`, or TPU7Z_DEVICE=1 in the
-environment) compresses one input, a file or standard input with -si,
-into one .lz4 frame with the device block encoder
-(parallel/sharded.py:shard_compress_lz4_device) on the CUDA card; the
-archive is written to a temporary file and renamed over its name, or to
-standard output with -so. `t` tests and `x`/`e` extract .lz4 frames
-(and the skippable container) with the port's decoder. The rest of
-tpu7z's CLI (other verbs, types, codecs and switches, and LZ4 without
-the device) is `python -m tpu7z.cli`'s: asking the port for it exits
-with 2 and says so.
+`a` compresses one input, a file or standard input with -si, into one
+frame; the archive is written to a temporary file and renamed over its
+name, or to standard output with -so. The type comes from -t, else from
+the archive's extension.
+  -tlz4 -mdev (also -m0=lz4:dev, or TPU7Z_DEVICE=1 in the environment):
+      the device block encoder (parallel/sharded.py:
+      shard_compress_lz4_device) on the CUDA card;
+  -tlz4: the host encoder, tpu7z's frame of 4 MiB independent blocks
+      with content size and checksum (models/lz4/frame.py:compress_frame);
+  -tzstd: level -mx{N} (default 5, at most 22); -mmt{N} with N > 1 runs
+      the zstdmt job model (parallel/zstd_jobs.py); -m0=zstd:wlog=N (or
+      -m0=zstd:x{N} for the level) runs the tensor encoder, whose parse
+      runs on the card (models/zstd/compressor.py); else the host encoder.
+      tpu7z has no zstd device coder, so -mdev with zstd exits 2.
+`t` tests and `x`/`e` extract .lz4 and .zst archives, known by -t, their
+extension or their magic: frames and blocks decode in parallel
+(parallel/decode.py), serially at -mmt1. The rest of tpu7z's CLI (other
+verbs, types, codecs and switches) is `python -m tpu7z.cli`'s: asking the
+port for it exits with 2 and says so. The bytes written are tpu7z's.
 """
 
 from __future__ import annotations
@@ -23,12 +33,19 @@ import sys
 from dataclasses import dataclass, field
 
 from ..models.lz4 import frame
-from ..models.lz4.block import CorruptError
+from ..models.zstd import frame as zframe
+from ..parallel import decode
 from ..parallel.sharded import shard_compress_lz4_device
+from ..utils.errors import TpuzError
 
 ELSEWHERE = "use python -m tpu7z.cli"
 LZ4_MAGICS = (frame.MAGIC.to_bytes(4, "little"),
               frame.MAGIC_SKIPPABLE_MIN.to_bytes(4, "little"))
+ZSTD_MAGIC = zframe.MAGIC.to_bytes(4, "little")
+EXTENSIONS = {".lz4": "lz4", ".zst": "zstd"}
+TYPES = {"lz4": "lz4", "zstd": "zstd", "zst": "zstd"}
+MAX_THREADS = 8          # -mmt's ceiling, as tpu7z's parse_mt has it
+DEFAULT_LEVEL = 5
 
 
 class UsageError(Exception):
@@ -39,7 +56,9 @@ class UsageError(Exception):
 class Options:
     type: str | None = None
     method: str | None = None
-    props: set = field(default_factory=set)
+    props: dict = field(default_factory=dict)
+    level: int | None = None
+    threads: int | None = None
     # -mdev, also on when TPU7Z_DEVICE is set to anything but 0
     device: bool = field(default_factory=lambda: os.environ.get(
         "TPU7Z_DEVICE", "") not in ("", "0"))
@@ -48,14 +67,54 @@ class Options:
     outdir: str = "."
 
 
+def _method_spec(spec: str):
+    """`zstd:x19:wlog=21:dev` -> ("zstd", {"x": 19, "wlog": 21, "dev":
+    True}), as tpu7z's parse_method_spec reads it: `k=v`, or a name with
+    a number after it, or a bare flag."""
+    name, *parts = spec.split(":")
+    props = {}
+    for p in parts:
+        if "=" in p:
+            k, v = p.split("=", 1)
+            props[k.lower()] = int(v) if v.lstrip("-").isdigit() else v
+            continue
+        i = 0
+        while i < len(p) and not p[i].isdigit():
+            i += 1
+        if i in (0, len(p)):
+            if p:
+                props[p.lower()] = True
+        else:
+            props[p[:i].lower()] = int(p[i:])
+    return name.lower(), props
+
+
+def _threads(spec: str) -> int:
+    """-mmt's value: a count (at most 8), on (8) or off (0)."""
+    s = spec.lstrip("=").lower()
+    if s in ("", "on"):
+        return MAX_THREADS
+    if s == "off":
+        return 0
+    if not s.isdigit():
+        raise UsageError(f"-mmt{spec}: the port takes -mmt with a count, on or off; "
+                         f"{ELSEWHERE}")
+    return min(max(int(s), 1), MAX_THREADS)
+
+
 def _parse(args) -> tuple[Options, list[str]]:
     opts, rest = Options(), []
     for a in args:
         if a.startswith("-t"):
             opts.type = a[2:].lower()
         elif a.startswith("-m0="):
-            name, *props = a[4:].split(":")
-            opts.method, opts.props = name.lower(), {p.lower() for p in props if p}
+            opts.method, opts.props = _method_spec(a[4:])
+            if "x" in opts.props:
+                opts.level = int(opts.props.pop("x"))
+        elif a.startswith("-mx"):
+            opts.level = int(a[3:].lstrip("="))
+        elif a.startswith("-mmt"):
+            opts.threads = _threads(a[4:])
         elif a.startswith("-mdev"):
             opts.device = a[5:].lstrip("=") not in ("off", "0", "-")
         elif a == "-si":
@@ -71,36 +130,50 @@ def _parse(args) -> tuple[Options, list[str]]:
     return opts, rest
 
 
+def _by_extension(path: str):
+    for ext, t in EXTENSIONS.items():
+        if path.endswith(ext):
+            return t
+    return None
+
+
+def _read_input(opts: Options, inputs, atype: str) -> bytes:
+    if opts.stdin:
+        if inputs:
+            raise UsageError("a -si: no input files with -si")
+        return sys.stdin.buffer.read()
+    if len(inputs) != 1 or os.path.isdir(inputs[0]):
+        raise UsageError(f"a -t{atype}: one input file, as a frame holds one "
+                         f"stream (got {len(inputs)}); for archives, {ELSEWHERE}")
+    with open(inputs[0], "rb") as f:
+        return f.read()
+
+
 def _add(opts: Options, args, device) -> int:
     if not args:
         raise UsageError("a: missing archive name")
     archive, inputs = args[0], args[1:]
-    atype = opts.type or ("lz4" if archive.endswith(".lz4") else None)
-    method = opts.method or atype
-    dev = opts.device or "dev" in opts.props
-    if opts.props - {"dev"}:
-        raise UsageError(f"-m0={opts.method}:{':'.join(sorted(opts.props))}: the "
-                         f"device coder takes no method properties; {ELSEWHERE}")
+    atype = TYPES.get(opts.type, opts.type) if opts.type else _by_extension(archive)
+    method = TYPES.get(opts.method, opts.method) if opts.method else atype
+    dev = opts.device or bool(opts.props.get("dev"))
     if dev and (atype, method) != ("lz4", "lz4"):
         raise UsageError(f"-mdev: the device coder writes lz4 only, not "
                          f"{method or atype or 'this archive type'}; {ELSEWHERE}")
-    if atype != "lz4":
-        raise UsageError(f"-t{atype or '?'}: the port writes only .lz4, with "
-                         f"-mdev; {ELSEWHERE}")
-    if not dev:
-        raise UsageError(f"-tlz4 without -mdev: the port's CLI encodes only "
-                         f"with the device coder; add -mdev, or {ELSEWHERE}")
-    if opts.stdin:
-        if inputs:
-            raise UsageError("a -si: no input files with -si")
-        data = sys.stdin.buffer.read()
-    elif len(inputs) != 1 or os.path.isdir(inputs[0]):
-        raise UsageError(f"a -tlz4: one input file, as a frame holds one "
-                         f"stream (got {len(inputs)}); for archives, {ELSEWHERE}")
+    if atype not in ("lz4", "zstd") or method != atype:
+        raise UsageError(f"-t{opts.type or atype or '?'}: the port writes only .lz4 and "
+                         f".zst, each with its own codec; {ELSEWHERE}")
+    data = _read_input(opts, inputs, atype)
+    if atype == "lz4":
+        out = (shard_compress_lz4_device(data, device=device) if dev
+               else frame.compress_frame(data))
     else:
-        with open(inputs[0], "rb") as f:
-            data = f.read()
-    out = shard_compress_lz4_device(data, device=device)
+        kw = {}
+        if "wlog" in opts.props:
+            kw["window_log"] = int(opts.props["wlog"])
+            kw["device"] = device
+        if opts.threads:
+            kw["threads"] = opts.threads
+        out = zframe.compress(data, level=min(opts.level or DEFAULT_LEVEL, 22), **kw)
     if opts.stdout:
         sys.stdout.buffer.write(out)
         return 0
@@ -123,20 +196,29 @@ def _decode(opts: Options, args, test_only: bool) -> int:
     else:
         with open(path, "rb") as f:
             data = f.read()
-    atype = opts.type or ("lz4" if (path or "").endswith(".lz4")
-                          or data[:4] in LZ4_MAGICS else None)
-    if atype != "lz4":
-        raise UsageError(f"{path or 'stdin'}: the port reads .lz4 only; {ELSEWHERE}")
-    content = frame.decompress(data)
+    atype = TYPES.get(opts.type, opts.type) if opts.type else (
+        _by_extension(path or "") or ("zstd" if data[:4] == ZSTD_MAGIC else
+                                      "lz4" if data[:4] in LZ4_MAGICS else None))
+    if atype not in ("lz4", "zstd"):
+        raise UsageError(f"{path or 'stdin'}: the port reads .lz4 and .zst only; "
+                         f"{ELSEWHERE}")
+    # frames and blocks decode in parallel; -mmt1 forces the serial path
+    if atype == "zstd":
+        content = (zframe.decompress(data) if opts.threads == 1
+                   else decode.decompress_zstd(data, threads=opts.threads))
+    else:
+        content = (frame.decompress(data) if opts.threads == 1
+                   else decode.decompress_lz4(data, threads=opts.threads))
     if test_only:
-        print("type=lz4 files=1")
+        print(f"type={atype} files=1")
         print("Everything is Ok")
         return 0
     if opts.stdout:
         sys.stdout.buffer.write(content)
         return 0
     name = os.path.basename(path or "stdin")
-    name = name[:-4] if name.endswith(".lz4") else name + ".out"
+    ext = next((e for e in EXTENSIONS if name.endswith(e)), None)
+    name = name[:-len(ext)] if ext else name + ".out"
     os.makedirs(opts.outdir, exist_ok=True)
     with open(os.path.join(opts.outdir, name), "wb") as f:
         f.write(content)
@@ -145,8 +227,8 @@ def _decode(opts: Options, args, test_only: bool) -> int:
 
 
 def main(argv=None, *, device=None) -> int:
-    """Run one command; returns the exit code. The encoder runs on the CUDA
-    card unless `device` names another (the tests name the CPU)."""
+    """Run one command; returns the exit code. The device encoders run on
+    the CUDA card unless `device` names another (the tests name the CPU)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(__doc__)
@@ -161,6 +243,6 @@ def main(argv=None, *, device=None) -> int:
         if cmd == "t":
             return _decode(opts, rest, test_only=True)
         raise UsageError(f"command {cmd!r} is not served by the port; {ELSEWHERE}")
-    except (UsageError, CorruptError, OSError) as e:
+    except (UsageError, TpuzError, OSError) as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 2

@@ -1,5 +1,6 @@
 // XXH32 of a byte buffer on the host: the content checksum of the .lz4
-// frames the port writes and verifies. Written from the public xxHash
+// frames the port writes and verifies; and tz_xxh64 (xxh64.h), whose low
+// 32 bits are the .zst frame's. Written from the public xxHash
 // specification (XXH32): four accumulators take the buffer's 16-byte
 // stripes, one 4-byte little-endian lane each; their rotations are summed,
 // the length added, the 4-byte and then the 1-byte tail mixed in, and the
@@ -10,6 +11,8 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+
+#include "xxh64.h"
 
 static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
               "lanes are read in the host's byte order");
@@ -64,4 +67,8 @@ extern "C" uint32_t tz_xxh32(const uint8_t* data, size_t n, uint32_t seed) {
   h *= P3;
   h ^= h >> 16;
   return h;
+}
+
+extern "C" uint64_t tz_xxh64(const uint8_t* data, size_t n, uint64_t seed) {
+  return tz_xxh::xxh64(data, n, seed);
 }

@@ -20,13 +20,9 @@ import ctypes
 import numpy as np
 
 from ...ops import _build
+from ...utils.errors import CorruptError  # noqa: F401  (re-exported)
 
 MIN_MATCH = 4
-
-
-class CorruptError(ValueError):
-    """The input violates the LZ4 format."""
-
 
 _ERRORS = {-1: "truncated input", -2: "invalid offset", -3: "output overflow"}
 _lib = None
@@ -163,6 +159,20 @@ def compress_block_native(src) -> bytes:
     r = _library().lz4_encode(raw, len(raw), dst.ctypes.data, cap)
     if r <= 0:
         raise RuntimeError(f"lz4_encode failed on {len(raw)} bytes")
+    return dst[:r].tobytes()
+
+
+def compress_block_continuation_native(chunk, window) -> bytes:
+    """One linked LZ4 block of `chunk` whose matches may reach back into
+    `window` (the content before it, at most its last 64 KiB), by the
+    host library's greedy encoder: the bytes of tpu7z's
+    `compress_block_continuation(chunk, window)`."""
+    s = bytes(window) + bytes(chunk)
+    cap = len(chunk) + len(chunk) // 128 + 64
+    dst = np.empty(cap, dtype=np.uint8)
+    r = _library().lz4_encode_region(s, len(s), len(window), dst.ctypes.data, cap)
+    if r <= 0:
+        raise RuntimeError(f"lz4_encode_region failed on {len(chunk)} bytes")
     return dst[:r].tobytes()
 
 

@@ -11,9 +11,11 @@ EndMark; the content checksum xxh32(content) u32le if flagged. Where
 bit 5 is clear, the blocks are linked: a block's matches may reach into
 the last 64 KiB of the content before it.
 
-The port writes two descriptors: FLG 0x60 BD 0x40 (`HEADER`, the device
-encoder's frame: no checksums, no content size) and FLG 0x6C (independent
-blocks, content size and content checksum) from the device match finder.
+The device paths write two descriptors: FLG 0x60 BD 0x40 (`HEADER`, the
+device encoder's frame: no checksums, no content size) and FLG 0x6C
+(independent blocks, content size and content checksum) from the device
+match finder; `compress_frame`, the host encoder, writes tpu7z's frames
+with any of their options.
 Skippable frames (magic 0x184D2A50..5F, a u32le size and that many bytes)
 carry the skippable container's sizes; the decoder skips them. The
 decoder takes every frame tpu7z's takes: reserved bits are ignored, and
@@ -147,21 +149,34 @@ def iter_blocks(src: bytes):
         yield from blocks
 
 
-def _decode_frame(flg: int, bsize: int, blocks) -> bytes:
+def _block(bsize: int, stored: bool, payload, window: bytes = b"") -> bytes:
+    if stored:
+        return bytes(payload)
+    return lz4block.decompress_block(payload, cap_hint=bsize, window=window)
+
+
+def _decode_frame(flg: int, bsize: int, blocks, pmap=map) -> bytes:
     """The content of one frame's blocks: each independent block decodes
-    alone into at most `bsize` bytes; a linked block also sees the last
-    64 KiB of the content before it."""
-    linked = not flg & FLG_INDEPENDENT
+    alone into at most `bsize` bytes, through `pmap` (a pool's `map` to
+    decode them in parallel); a linked block also sees the last 64 KiB of
+    the content before it, so a linked frame decodes in order."""
+    if flg & FLG_INDEPENDENT:
+        return b"".join(pmap(lambda blk: _block(bsize, *blk), blocks))
     parts, window = [], b""
     for stored, payload in blocks:
-        if stored:
-            data = bytes(payload)
-        else:
-            data = lz4block.decompress_block(payload, cap_hint=bsize, window=window)
+        data = _block(bsize, stored, payload, window)
         parts.append(data)
-        if linked:
-            window = (window + data)[-WINDOW:]
+        window = (window + data)[-WINDOW:]
     return b"".join(parts)
+
+
+def _content(flg, bsize, size, blocks, checksum, verify_checksums, pmap=map) -> bytes:
+    data = _decode_frame(flg, bsize, blocks, pmap)
+    if verify_checksums and checksum is not None and xxh32_native(data) != checksum:
+        raise CorruptError("lz4 frame: content checksum mismatch")
+    if size is not None and len(data) != size:
+        raise CorruptError("lz4 frame: content size mismatch")
+    return data
 
 
 def decompress(src: bytes, verify_checksums: bool = True) -> bytes:
@@ -169,12 +184,43 @@ def decompress(src: bytes, verify_checksums: bool = True) -> bytes:
     without block checksums, content size and content checksum. The
     checksums (header, block, content) are verified unless
     `verify_checksums` is false; the content size always is."""
-    parts = []
-    for flg, bsize, size, blocks, checksum in _frames(src, verify_checksums):
-        data = _decode_frame(flg, bsize, blocks)
-        if verify_checksums and checksum is not None and xxh32_native(data) != checksum:
-            raise CorruptError("lz4 frame: content checksum mismatch")
-        if size is not None and len(data) != size:
-            raise CorruptError("lz4 frame: content size mismatch")
-        parts.append(data)
-    return b"".join(parts)
+    return b"".join(_content(*parsed, verify_checksums)
+                    for parsed in _frames(src, verify_checksums))
+
+
+def compress_frame(data: bytes, block_size: int = 1 << 22,
+                   content_checksum: bool = True, content_size: bool = True,
+                   block_checksum: bool = False,
+                   block_independence: bool = True) -> bytes:
+    """One .lz4 frame of `data` by the host encoder, the bytes of tpu7z's
+    `compress_frame` (tpu7z/models/lz4/frame.py:43): blocks of
+    `block_size` (4 MiB by default), each `compress_block_native`, or,
+    where blocks are linked, `compress_block_continuation_native` behind
+    the last 64 KiB before it; a block stored raw where that is not
+    longer."""
+    code = _pick_bd(block_size)
+    bsize = min(block_size, _BD_SIZES[code])
+    flg = (FLG_VERSION | (FLG_INDEPENDENT if block_independence else 0)
+           | (FLG_BLOCK_CHECKSUM if block_checksum else 0)
+           | (FLG_CONTENT_SIZE if content_size else 0)
+           | (FLG_CONTENT_CHECKSUM if content_checksum else 0))
+    desc = bytes([flg, code << 4])
+    if content_size:
+        desc += len(data).to_bytes(8, "little")
+    out = bytearray(MAGIC.to_bytes(4, "little") + desc
+                    + bytes([(xxh32(desc) >> 8) & 0xFF]))
+    for start in range(0, len(data), bsize):
+        chunk = data[start:start + bsize]
+        if block_independence or start == 0:
+            comp = lz4block.compress_block_native(chunk)
+        else:
+            comp = lz4block.compress_block_continuation_native(
+                chunk, data[max(start - WINDOW, 0):start])
+        record = block_record(chunk, comp)
+        out += record
+        if block_checksum:
+            out += xxh32_native(record[4:]).to_bytes(4, "little")
+    out += (0).to_bytes(4, "little")  # EndMark
+    if content_checksum:
+        out += xxh32_native(data).to_bytes(4, "little")
+    return bytes(out)

@@ -5,7 +5,8 @@ into `_build/` inside the package at first use and loaded with ctypes:
 `csrc/<name>.cu`, a CUDA kernel source, by `nvcc` for Hopper (`sm_90a`);
 `csrc/<name>.cpp`, host code, by the host C++ compiler (`$CXX`, else
 `c++`). A library is rebuilt when the hash of its source, the shared
-headers or the flags changes. Nothing here runs at import time.
+headers (`*.cuh` of a kernel source, `*.h` of a host source) or the
+flags changes. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def _target(name: str) -> Path:
     cuda = src.suffix == ".cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS if cuda else CXX_FLAGS).encode())
     h.update(src.read_bytes())
-    for hdr in sorted(CSRC.glob("*.cuh")) if cuda else ():
+    for hdr in sorted(CSRC.glob("*.cuh" if cuda else "*.h")):
         h.update(hdr.read_bytes())
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,8 +1,10 @@
-"""XXH32, the .lz4 frame's checksum, written against the public xxHash
-specification, twice: `xxh32` in Python (the spec's twin, used for the
-frames' 2- to 10-byte header checksums, so importing the frame module
-builds nothing) and `xxh32_native`, the host library built from
-csrc/xxh32.cpp (the content checksums, over whole inputs)."""
+"""XXH32, the .lz4 frame's checksum, and XXH64, whose low 32 bits are the
+.zst frame's, written against the public xxHash specification, twice
+each: `xxh32` and `xxh64` in Python (the spec's twins; `xxh32` serves
+the .lz4 frames' 2- to 10-byte header checksums, so importing a frame
+module builds nothing) and `xxh32_native` and `xxh64_native`, the host
+library built from csrc/xxh32.cpp (the content checksums, over whole
+inputs)."""
 
 from __future__ import annotations
 
@@ -18,6 +20,13 @@ _P32_3 = 0xC2B2AE3D
 _P32_4 = 0x27D4EB2F
 _P32_5 = 0x165667B1
 _M32 = 0xFFFFFFFF
+
+_P64_1 = 0x9E3779B185EBCA87
+_P64_2 = 0xC2B2AE3D27D4EB4F
+_P64_3 = 0x165667B19E3779F9
+_P64_4 = 0x85EBCA77C2B2AE63
+_P64_5 = 0x27D4EB2F165667C5
+_M64 = 0xFFFFFFFFFFFFFFFF
 
 
 def _rotl32(x: int, r: int) -> int:
@@ -67,19 +76,95 @@ def xxh32(data, seed: int = 0) -> int:
     return h
 
 
-_native = None
+def _rotl64(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _xxh64_round(acc: int, lane: int) -> int:
+    acc = (acc + lane * _P64_2) & _M64
+    return (_rotl64(acc, 31) * _P64_1) & _M64
+
+
+def _xxh64_merge(h: int, acc: int) -> int:
+    h ^= _xxh64_round(0, acc)
+    return ((h * _P64_1) + _P64_4) & _M64
+
+
+def xxh64(data, seed: int = 0) -> int:
+    data = np.frombuffer(bytes(data), dtype=np.uint8) if not isinstance(
+        data, np.ndarray) else data
+    n = data.size
+    nstripes = n // 32
+    if nstripes > 0:
+        words = data[: nstripes * 32].view("<u8").reshape(nstripes, 4)
+        v = [
+            (seed + _P64_1 + _P64_2) & _M64,
+            (seed + _P64_2) & _M64,
+            seed & _M64,
+            (seed - _P64_1) & _M64,
+        ]
+        for i in range(nstripes):
+            row = words[i]
+            for lane in range(4):
+                v[lane] = _xxh64_round(v[lane], int(row[lane]))
+        h = (_rotl64(v[0], 1) + _rotl64(v[1], 7) + _rotl64(v[2], 12)
+             + _rotl64(v[3], 18)) & _M64
+        for lane in range(4):
+            h = _xxh64_merge(h, v[lane])
+    else:
+        h = (seed + _P64_5) & _M64
+    h = (h + n) & _M64
+    pos = nstripes * 32
+    while pos + 8 <= n:
+        k = int.from_bytes(bytes(data[pos:pos + 8]), "little")
+        h ^= _xxh64_round(0, k)
+        h = (_rotl64(h, 27) * _P64_1 + _P64_4) & _M64
+        pos += 8
+    if pos + 4 <= n:
+        k = int.from_bytes(bytes(data[pos:pos + 4]), "little")
+        h ^= (k * _P64_1) & _M64
+        h = (_rotl64(h, 23) * _P64_2 + _P64_3) & _M64
+        pos += 4
+    while pos < n:
+        h ^= (int(data[pos]) * _P64_5) & _M64
+        h = (_rotl64(h, 11) * _P64_1) & _M64
+        pos += 1
+    h ^= h >> 33
+    h = (h * _P64_2) & _M64
+    h ^= h >> 29
+    h = (h * _P64_3) & _M64
+    h ^= h >> 32
+    return h
+
+
+_native = {}
+
+
+def _function(name: str, width):
+    fn = _native.get(name)
+    if fn is None:
+        fn = getattr(_build.load("xxh32"), name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, width]
+        fn.restype = width
+        _native[name] = fn
+    return fn
+
+
+def _buffer(data):
+    return (np.ascontiguousarray(data, dtype=np.uint8) if isinstance(data, np.ndarray)
+            else np.frombuffer(data, dtype=np.uint8))
 
 
 def xxh32_native(data, seed: int = 0) -> int:
     """XXH32 of `data` (bytes-like, or a uint8 array) by the host library
     built from csrc/xxh32.cpp with the host C++ compiler; equal to
     `xxh32`. A failed build raises."""
-    global _native
-    if _native is None:
-        fn = _build.load("xxh32").tz_xxh32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint32]
-        fn.restype = ctypes.c_uint32
-        _native = fn
-    buf = (np.ascontiguousarray(data, dtype=np.uint8) if isinstance(data, np.ndarray)
-           else np.frombuffer(data, dtype=np.uint8))
-    return _native(buf.ctypes.data, buf.size, seed & _M32)
+    buf = _buffer(data)
+    return _function("tz_xxh32", ctypes.c_uint32)(buf.ctypes.data, buf.size, seed & _M32)
+
+
+def xxh64_native(data, seed: int = 0) -> int:
+    """XXH64 of `data` by the same library (csrc/xxh64.h); equal to
+    `xxh64`."""
+    buf = _buffer(data)
+    return _function("tz_xxh64", ctypes.c_uint64)(buf.ctypes.data, buf.size, seed & _M64)

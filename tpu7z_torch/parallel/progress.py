@@ -10,6 +10,7 @@ the host accumulator.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 import torch
@@ -35,25 +36,29 @@ def reduce_progress(in_sizes, out_sizes, error_flags, group=None):
 
 class Progress:
     """Host-side accumulator: totals plus first-error-wins, optionally
-    forwarding the totals to a callback."""
+    forwarding the totals to a callback. Worker threads share one (the
+    zstd job model), so its updates hold a lock."""
 
     def __init__(self, callback: Callable[[int, int], None] | None = None):
         self.in_total = 0
         self.out_total = 0
         self.error: BaseException | None = None
         self._cb = callback
+        self._lock = threading.Lock()
 
     def add(self, in_bytes: int, out_bytes: int) -> None:
-        if self.error is not None:
-            return
-        self.in_total += in_bytes
-        self.out_total += out_bytes
-        if self._cb is not None:
-            self._cb(self.in_total, self.out_total)
+        with self._lock:
+            if self.error is not None:
+                return
+            self.in_total += in_bytes
+            self.out_total += out_bytes
+            if self._cb is not None:
+                self._cb(self.in_total, self.out_total)
 
     def set_error(self, exc: BaseException) -> None:
-        if self.error is None:  # first error wins
-            self.error = exc
+        with self._lock:
+            if self.error is None:  # first error wins
+                self.error = exc
 
     def check(self) -> None:
         if self.error is not None:
