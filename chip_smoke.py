@@ -5,8 +5,9 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit; build the native libraries from
-     tpu7z_torch/csrc (the kernels with nvcc, the host xxh32 and LZ4 codec
-     with c++), one process per source, all at once;
+     tpu7z_torch/csrc (the kernels with nvcc, the host libraries with
+     c++: xxh32, CRC, the LZ4, zstd and LZMA codecs), one process per
+     source, all at once;
   2. each of the four encoder kernels against its plain PyTorch version
      on the card, exact equality, on test patterns, short blocks, the
      edge blocks of the row kernels' joins and of lz4_emit's row spans,
@@ -79,7 +80,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      corpus through the tensor encoder on the card (level 5, window_log
      21: what `a -tzstd -m0=zstd:wlog=21` runs), one row sort a segment
      counted, its stages traced, its frame decoded; and `sort_rows` at
-     this path's row shape against its plain version, timed.
+     this path's row shape against its plain version, timed;
+  9. the shared LZ matcher as tensor code on the card: LZ4's parse
+     (`compress_block(accel=2)` on the first 1 MiB equal to its CPU run;
+     `compress_frame(corpus, accel=2)`, one row sort a 4 MiB block,
+     decoded with its checksums), LZMA's fast parse (each 64 KiB chunk of
+     the first 1 MiB and a 10-byte tail equal to the CPU run and to the
+     one-pass matcher; `lzma2.compress_chunks` over 8 MiB, one row sort,
+     decoded by the port and the standard library), both with their spans
+     timed, and `sort_rows` at the LZMA row (8 Mi int32 keys, a payload)
+     against its plain version, timed; the host tier: `xz.compress` over
+     the corpus and its decode (the standard library's of its LZMA2
+     stream), `lzma2.compress(shard_size=4 MiB)` over 16 MiB decoded
+     serially, in 8 threads and by the standard library, the native CRCs against
+     the Python forms and zlib, and the CLI's `a -txz`, `t` and `x`.
 The timing helpers are tpu7z_torch/utils/timing.py's, shared with
 bench_torch.py. The line before the last is the per-kernel JSON; the last
 line is the device JSON. Imports nothing of JAX or tpu7z.
@@ -318,6 +332,24 @@ def lz4_decode_times(framed, corpus, frame, block, block_size):
     return {"serial_s": serial_s, "threads8_s": threads_s, "library_s": library_s}
 
 
+def spans_of(fn):
+    """(fn's result, seconds by trace span name) of one call of fn with
+    tracing on (each device stage synchronizes the card at its ends)."""
+    from tpu7z_torch.utils import trace
+
+    trace.attach(keep_records=True)
+    trace.clear()
+    try:
+        out = fn()
+        spans = {}
+        for r in trace.records():
+            spans[r["name"]] = spans.get(r["name"], 0.0) + r["seconds"]
+    finally:
+        trace.detach()
+        trace.clear()
+    return out, spans
+
+
 def zstd_phase(corpus, dev, S, M, card_label):
     """Phase 8, zstd: (a) the host tier over the corpus, (b) the tensor
     parse on the card against the port's CPU run, (c) the corpus through
@@ -329,7 +361,6 @@ def zstd_phase(corpus, dev, S, M, card_label):
     from tpu7z_torch.ops import hash_chain as HC
     from tpu7z_torch.parallel import decode as PD
     from tpu7z_torch.parallel import zstd_jobs as ZJ
-    from tpu7z_torch.utils import trace
     from tpu7z_torch.utils.timing import timed, timed_launches
 
     mb = len(corpus) / 1e6
@@ -394,18 +425,9 @@ def zstd_phase(corpus, dev, S, M, card_label):
     # `a -tzstd -m0=zstd:wlog=21` runs: launches counted, stages traced
     S.reset_launches()
     HC.reset_steps()
-    trace.attach(keep_records=True)
-    trace.clear()
-    try:
-        t = time.perf_counter()
-        framed = ZC.compress(corpus, level=5, window_log=21, device=dev)
-        t_enc = time.perf_counter() - t
-        spans = {}
-        for r in trace.records():
-            spans[r["name"]] = spans.get(r["name"], 0.0) + r["seconds"]
-    finally:
-        trace.detach()
-        trace.clear()
+    t = time.perf_counter()
+    framed, spans = spans_of(lambda: ZC.compress(corpus, level=5, window_log=21, device=dev))
+    t_enc = time.perf_counter() - t
     launches = S.LAUNCHES["sort_rows"]
     steps = dict(HC.STEPS)
     segments = -(-len(corpus) // (1 << 22))
@@ -452,6 +474,213 @@ def zstd_phase(corpus, dev, S, M, card_label):
             "sort_order_ms": order_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms, "max_abs_err": err,
             "encoder_s": t_enc, "stages_s": spans, "probe_steps": steps}
+
+
+def lz_phase(corpus, dev, S, M, card_label):
+    """Phase 9, the shared LZ matcher on the card and the .xz host tier:
+    (a) LZ4's tensor parse, (b) LZMA's fast parse, each counted and
+    checked against its CPU run, and the row sort at the LZMA row's shape
+    against its plain version; (c) the host tier of .xz and LZMA2, the
+    native CRCs and the CLI's .xz verbs. Returns the numbers for the
+    kernels line and the log."""
+    import lzma as stdlzma
+    import zlib
+
+    from tpu7z_torch.containers import xz
+    from tpu7z_torch.models.lz4 import block as LB
+    from tpu7z_torch.models.lz4 import frame as LF
+    from tpu7z_torch.models.lzma import encoder as LE
+    from tpu7z_torch.models.lzma import lzma2 as L2
+    from tpu7z_torch.ops import hash_chain as HC
+    from tpu7z_torch.ops.hashing import crc32, crc32_native, crc64, crc64_native
+    from tpu7z_torch.parallel import decode as PD
+    from tpu7z_torch.utils.timing import timed, timed_launches
+
+    mb = len(corpus) / 1e6
+    raw2 = [{"id": stdlzma.FILTER_LZMA2, "dict_size": 1 << 24}]
+    out = {}
+
+    # (a) LZ4's tensor parse: the corpus as 4 MiB blocks at accel 2, one
+    # row sort a block; the card's block equal to the CPU's on 1 MiB
+    head = corpus[:1 << 20]
+    card_block = LB.compress_block(head, accel=2, device=dev)
+    cpu_block = LB.compress_block(head, accel=2, device="cpu")
+    if card_block != cpu_block:
+        raise AssertionError("compress_block(accel=2) on the card differs from its CPU run")
+    log(f"compress_block(first 1 MiB, accel 2): card and CPU {len(card_block)} bytes, equal")
+    S.reset_launches()
+    t = time.perf_counter()
+    framed, spans = spans_of(lambda: LF.compress_frame(corpus, accel=2, device=dev))
+    t_lz4 = time.perf_counter() - t
+    launches = S.LAUNCHES["sort_rows"]
+    blocks = -(-len(corpus) // (4 << 20))
+    if launches != blocks:
+        raise AssertionError(f"compress_frame(accel=2): {launches} row sorts, expected one "
+                             f"a block ({blocks})")
+    if LF.decompress(framed, verify_checksums=True) != corpus:
+        raise AssertionError("compress_frame(accel=2)'s frame does not decode to the input")
+    if framed == LF.compress_frame(corpus):
+        raise AssertionError("compress_frame(accel=2) gave the host library's frame")
+    log(f"compress_frame(corpus, accel=2) on the card ({card_label}): {len(framed)} bytes, "
+        f"ratio {len(corpus) / len(framed):.6f}, {t_lz4:.3f} s host clock with tracing "
+        f"({mb / t_lz4:.2f} MB/s), {launches} sort_rows launches (one a 4 MiB block); "
+        f"decoded with checksums verified: equal; spans (s) "
+        f"{ {k: round(v, 4) for k, v in sorted(spans.items())} }")
+    out["lz4_accel"] = {"launches": launches, "seconds": t_lz4, "spans_s": spans,
+                        "ratio": len(corpus) / len(framed)}
+
+    # (b) LZMA's fast parse: each 64 KiB chunk of the first 1 MiB and a
+    # 10-byte tail as tpu7z finds them (over the prefix to the chunk's
+    # end), on the card against the CPU, and from one matcher over the
+    # whole prefix; then 8 MiB through compress_chunks on the card
+    w = np.frombuffer(corpus[:(1 << 20) + 10], np.uint8)
+    chunks = [(a, min(a + (1 << 16), w.size)) for a in range(0, 1 << 20, 1 << 16)]
+    chunks.append((1 << 20, w.size))
+    whole = LE.WindowMatcher(w, device=dev)
+    found = 0
+    for a, b in chunks:
+        card = LE._find_matches_window(w, a, b, device=dev)
+        cpu = LE._find_matches_window(w, a, b, device="cpu")
+        once = whole.matches(a, b)
+        for g, o, c, what in zip(card, once, cpu, ("mpos", "mlen", "mdist")):
+            if g.device.type != dev.type or not (torch.equal(g.cpu(), c)
+                                               and torch.equal(o.cpu(), c)):
+                raise AssertionError(f"_find_matches_window {what} on the card differs from "
+                                     f"the CPU run on [{a}, {b})")
+        found += int(cpu[0].numel())
+    log(f"_find_matches_window on the card equals its CPU run and the one-pass matcher on "
+        f"the first 1 MiB's {len(chunks) - 1} chunks of 64 KiB and a 10-byte tail "
+        f"({found} matches)")
+    lz = corpus[:8 << 20]
+    S.reset_launches()
+    t = time.perf_counter()
+    stream, spans = spans_of(lambda: L2.compress_chunks(lz, device=dev))
+    t_lzma = time.perf_counter() - t
+    launches = S.LAUNCHES["sort_rows"]
+    if launches != 1:
+        raise AssertionError(f"compress_chunks: {launches} row sorts, expected 1")
+    if L2.decompress(stream + b"\x00") != lz:
+        raise AssertionError("compress_chunks' stream does not decode to the input (port)")
+    if stdlzma.decompress(stream + b"\x00", format=stdlzma.FORMAT_RAW, filters=raw2) != lz:
+        raise AssertionError("compress_chunks' stream does not decode to the input (stdlib)")
+    log(f"lzma2.compress_chunks(8 MiB) on the card ({card_label}): {len(stream)} bytes, ratio "
+        f"{len(lz) / len(stream):.6f}, {t_lzma:.3f} s host clock with tracing "
+        f"({len(lz) / 1e6 / t_lzma:.3f} MB/s), {launches} sort_rows launch; decoded by "
+        f"lzma2.decompress and the standard library: equal; spans (s) "
+        f"{ {k: round(v, 4) for k, v in sorted(spans.items())} }")
+    out["lzma_fast_parse"] = {"launches": launches, "seconds": t_lzma, "spans_s": spans,
+                              "ratio": len(lz) / len(stream)}
+
+    # the row sort at this path's shape: one row of 8 Mi int32 keys h << 15
+    # (hashlog 16) with an int32 position payload, begin_bit 8
+    row = torch.from_numpy(np.frombuffer(lz, np.uint8).copy()).to(dev)
+    h = HC.hashes(HC.u32_at(row), 16)[None]
+    key, bb = M.hash_key(h, 16)
+    pos = torch.arange(h.shape[1], dtype=torch.int32, device=dev)[None].contiguous()
+    got = S.sort_rows(key, pos, begin_bit=bb)
+    want = S.sort_rows_ref(key, pos, begin_bit=bb)
+    err = max_abs_err([bits64(g) for g in got], [bits64(w_) for w_ in want])
+    if err:
+        raise AssertionError(f"sort_rows differs from its plain version on the LZMA row: "
+                             f"max abs err {err}")
+    ms = timed(lambda: S.sort_rows(key, pos, begin_bit=bb))
+    outs, scratch = S.buffers(key, (pos,), bb)
+    kernel_ms = timed_launches(lambda: S._launch(key, (pos,), outs, scratch, bb))
+    plain_ms = timed(lambda: S.sort_rows_ref(key, pos, begin_bit=bb))
+    k64 = key.to(torch.int64) & 0xFFFFFFFF
+    lib_ms = timed(lambda: torch.sort(k64, dim=1, stable=True))
+    bound_ms = 2 * 2 * key.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"sort_rows on the LZMA row {tuple(key.shape)} (int32 keys h << 15, int32 position "
+        f"payload, begin_bit {bb}): equal to its plain version; {ms:.3f} ms through the "
+        f"wrapper, launches alone {kernel_ms:.3f} ms, bound {bound_ms:.3f} ms; plain "
+        f"{plain_ms:.3f} ms, torch.sort (int64, stable) {lib_ms:.3f} ms ({card_label})")
+    out["sort"] = {"shape": list(key.shape), "begin_bit": bb, "ms": ms, "kernel_ms": kernel_ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                   "max_abs_err": err}
+    del row, h, key, pos, got, want, outs, scratch, k64
+
+    # (c) the host tier: .xz over the corpus, LZMA2 shards decoded in
+    # threads, the native CRCs, the CLI's .xz verbs
+    t = time.perf_counter()
+    framed = xz.compress(corpus)
+    t_xz = time.perf_counter() - t
+    back, t_dec = best(lambda: xz.decompress(framed), 1)
+    if back != corpus:
+        raise AssertionError("xz.compress's stream does not decode to the input")
+    # tpu7z's block header declares a 16 MiB dictionary whatever the
+    # input's size, and its encoder's matches reach across the whole
+    # input: the standard library decodes the block's LZMA2 stream given
+    # a dictionary of the input's size, and may refuse the container
+    payload = framed[12 + (framed[12] + 1) * 4:]
+    std_dec = stdlzma.LZMADecompressor(stdlzma.FORMAT_RAW, filters=[
+        {"id": stdlzma.FILTER_LZMA2, "dict_size": 1 << 25}])
+    if std_dec.decompress(payload) != corpus or not std_dec.eof:
+        raise AssertionError("the standard library does not decode xz.compress's LZMA2 stream")
+    try:
+        container = "decodes it" if stdlzma.decompress(framed) == corpus else "differs"
+    except stdlzma.LZMAError as exc:
+        container = f"refuses it ({exc}), as it refuses tpu7z's"
+    log(f"xz.compress(corpus) ({card_label}, host clock): {len(framed)} bytes, ratio "
+        f"{len(corpus) / len(framed):.6f}, {t_xz:.3f} s ({mb / t_xz:.2f} MB/s); "
+        f"xz.decompress {t_dec:.3f} s ({mb / t_dec:.1f} MB/s): equal; the standard library "
+        f"decodes its LZMA2 stream with a 32 MiB dictionary: equal; the .xz as written "
+        f"(a 16 MiB dictionary declared): the standard library {container}")
+    sh = corpus[:16 << 20]
+    t = time.perf_counter()
+    sharded = L2.compress(sh, shard_size=4 << 20)
+    t_sh = time.perf_counter() - t
+    groups = PD.scan_lzma2_groups(sharded)
+    serial, t_serial = best(lambda: L2.decompress(sharded))
+    par, t_par = best(lambda: PD.decompress_lzma2(sharded, threads=8))
+    if serial != sh or par != sh or len(groups) != 4:
+        raise AssertionError(f"lzma2.compress(shard_size=4 MiB): {len(groups)} groups, "
+                             f"decoded serially and in 8 threads not equal to the input")
+    if stdlzma.decompress(sharded, format=stdlzma.FORMAT_RAW, filters=raw2) != sh:
+        raise AssertionError("the standard library does not decode the sharded LZMA2 stream")
+    log(f"lzma2.compress(16 MiB, shard_size=4 MiB) (host clock): {len(sharded)} bytes, ratio "
+        f"{len(sh) / len(sharded):.6f}, {t_sh:.3f} s; {len(groups)} groups decoded serially "
+        f"{t_serial:.4f} s, by decompress_lzma2 in 8 threads {t_par:.4f} s (best of 3), and by "
+        f"the standard library: equal")
+    part = corpus[:1 << 20]
+    if crc32_native(part) != crc32(part) or crc64_native(part) != crc64(part):
+        raise AssertionError("the native CRCs differ from the Python ones on the first 1 MiB")
+    c32, t32 = best(lambda: crc32_native(corpus))
+    c64, t64 = best(lambda: crc64_native(corpus))
+    if c32 != zlib.crc32(corpus):
+        raise AssertionError("crc32_native differs from zlib.crc32 over the corpus")
+    _, tz = best(lambda: zlib.crc32(corpus))
+    log(f"crc32_native and crc64_native equal the Python forms on the first 1 MiB, "
+        f"crc32_native zlib.crc32 over the corpus (crc64_native's check of the corpus is the "
+        f"one the standard library verified above); host clock, best of 3: crc32_native "
+        f"{t32 * 1e3:.3f} ms ({len(corpus) / t32 / 1e9:.2f} GB/s), crc64_native "
+        f"{t64 * 1e3:.3f} ms ({len(corpus) / t64 / 1e9:.2f} GB/s), zlib.crc32 {tz * 1e3:.3f} ms")
+    root = Path(__file__).resolve().parent
+    from tpu7z_torch.ops import _build
+    work = Path(tempfile.mkdtemp(dir=_build.BUILD))
+    try:
+        head2 = corpus[:2 << 20]
+        (work / "head.bin").write_bytes(head2)
+        env = dict(os.environ, PYTHONPATH=str(root))
+        for args in (["a", "-txz", "head.xz", "head.bin"], ["t", "head.xz"],
+                     ["x", "head.xz", "-oout"]):
+            t = time.time()
+            r = subprocess.run([sys.executable, "-m", "tpu7z_torch.cli", *args], cwd=work,
+                               env=env, capture_output=True, text=True, timeout=300)
+            log(f"python -m tpu7z_torch.cli {' '.join(args)}: exit {r.returncode} in "
+                f"{time.time() - t:.1f} s: {r.stdout.strip()!r}")
+            if r.returncode != 0:
+                raise AssertionError(f"the CLI failed:\n{r.stdout}\n{r.stderr}")
+        if (work / "out" / "head").read_bytes() != head2:
+            raise AssertionError("the CLI's .xz does not extract to its input")
+        if (work / "head.xz").read_bytes() != xz.compress(head2):
+            raise AssertionError("the CLI's .xz differs from xz.compress's")
+        log("the CLI's .xz equals xz.compress's and extracts to its input")
+    finally:
+        shutil.rmtree(work)
+    out["host"] = {"xz_s": t_xz, "xz_ratio": len(corpus) / len(framed), "xz_decode_s": t_dec,
+                   "shards_s": t_sh, "shards_serial_s": t_serial, "shards_threads8_s": t_par,
+                   "crc32_ms": t32 * 1e3, "crc64_ms": t64 * 1e3}
+    return out
 
 
 def sort_inputs(dev, corpus_blocks, corpus_ns, P, M):
@@ -1081,6 +1310,15 @@ def main() -> int:
     sort_entry["zstd_path"] = {k: zstd[k] for k in (
         "shape", "begin_bit", "ms", "sort_order_ms", "kernel_ms", "plain_ms", "library_ms",
         "bound_ms")}
+    # 9. the shared LZ matcher on the card (LZ4 at accel 2, LZMA's fast
+    # parse) and the .xz host tier
+    t = time.time()
+    lz = lz_phase(corpus, dev, S, M, f"{card_name}, {power_limit}")
+    log(f"phase 9 in {time.time() - t:.1f} s")
+    sort_entry["max_abs_err"] = max(sort_entry["max_abs_err"], lz["sort"]["max_abs_err"])
+    sort_entry["launches_by_path"].update(lz4_accel=lz["lz4_accel"]["launches"],
+                                          lzma_fast_parse=lz["lzma_fast_parse"]["launches"])
+    sort_entry["lzma_path"] = {k: v for k, v in lz["sort"].items() if k != "max_abs_err"}
 
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,7 @@ run as a module with no card, the CLI fails instead of running on the CPU.
 """
 
 import io
+import lzma as std_lzma
 import os
 import subprocess
 import sys
@@ -21,6 +22,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 from tests.conftest import REF_7ZZ, have_ref  # noqa: E402
+from tpu7z.cli.main import main as jmain  # noqa: E402
 from tpu7z.models.lz4 import frame as jframe  # noqa: E402
 from tpu7z.parallel.mesh import make_mesh  # noqa: E402
 from tpu7z.parallel.sharded import (  # noqa: E402
@@ -126,18 +128,16 @@ def test_test_reports_a_corrupt_frame(workdir, want, capsys):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["a", "-tzstd", "-mdev", "out.zst", "input.bin"],
-     "-mdev: the device coder writes lz4 only, not zstd"),
-    (["a", "-tlz4", "-m0=zstd", "-mdev", "out.lz4", "input.bin"],
-     "-mdev: the device coder writes lz4 only, not zstd"),
+    (["a", "-tbzip2", "out.bz2", "input.bin"], "-tbzip2: the port writes only .lz4"),
+    (["a", "-tlz4", "-m0=zstd", "out.lz4", "input.bin"],
+     "-tlz4: the port writes only .lz4, .zst and .xz, each with its own codec"),
     (["a", "-t7z", "out.7z", "input.bin"], "-t7z: the port writes only .lz4"),
     (["u", "out.lz4", "input.bin"], "command 'u' is not served by the port"),
     (["a", "-tlz4", "-mdev", "-psecret", "out.lz4", "input.bin"],
      "switch -psecret is not served by the port"),
-    (["a", "-tlz4", "-mdev", "out.lz4", "input.bin", "input.bin"],
-     "one input file"),
+    (["a", "-tgzip", "-mdev", "out.gz", "input.bin"], "-tgzip: the port writes only"),
     (["l", "out.lz4"], "command 'l' is not served by the port"),
-    (["x", "input.bin"], "input.bin: the port reads .lz4 and .zst only"),
+    (["x", "input.bin"], "input.bin: the port reads .lz4, .zst and .xz only"),
 ])
 def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
     assert main(args, device="cpu") == 2
@@ -166,3 +166,181 @@ def test_reference_7zz_decodes_the_frame(workdir, want):
                        capture_output=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout == _input()
+
+
+# --- tpu7z's behaviours the port now repeats, each against tpu7z.cli ---
+
+def _both(tmp_path, monkeypatch, prepare, args, env=None):
+    """Run `args` through tpu7z's CLI in one directory and the port's in
+    another, each prepared by `prepare(dir)`; returns (exit codes, stdout,
+    stderr, {relative path: bytes} of each directory after the run)."""
+    runs = []
+    for name, run in (("ref", lambda a: jmain(a)), ("port", lambda a: main(a, device="cpu"))):
+        d = tmp_path / name
+        d.mkdir()
+        prepare(d)
+        monkeypatch.chdir(d)
+        for k, v in (env or {}).items():
+            monkeypatch.setenv(k, v)
+        rc = run(list(args))
+        files = {str(p.relative_to(d)): p.read_bytes() for p in sorted(d.rglob("*"))
+                 if p.is_file()}
+        runs.append((rc, files))
+    return runs
+
+
+@pytest.mark.parametrize("atype,archive", [("-tzstd", "o.zst"), ("-txz", "o.xz")])
+@pytest.mark.parametrize("spelling", ["TPU7Z_DEVICE=1", "-mdev", "-m0=dev"])
+def test_device_flag_without_a_device_coder_writes_the_host_stream(
+        tmp_path, monkeypatch, capsys, atype, archive, spelling):
+    """tpu7z reads the device flag for lz4 only: with zstd and xz it
+    writes the host stream, and so does the port, with a note."""
+    monkeypatch.delenv("TPU7Z_DEVICE", raising=False)
+    env, extra = ({"TPU7Z_DEVICE": "1"}, []) if spelling.startswith("TPU7Z") else (
+        None, [spelling if spelling == "-mdev" else f"-m0={atype[2:]}:dev"])
+    args = ["a", atype, *extra, archive, "input.bin"]
+    (ref_rc, ref), (port_rc, port) = _both(
+        tmp_path, monkeypatch, lambda d: (d / "input.bin").write_bytes(_input()[:20000]),
+        args, env)
+    assert port_rc == ref_rc == 0
+    assert port == ref and archive in port
+    assert "has no device coder" in capsys.readouterr().err
+
+
+def _tree(files):
+    def prepare(d):
+        for rel, data in files.items():
+            (d / rel).parent.mkdir(parents=True, exist_ok=True)
+            (d / rel).write_bytes(data)
+    return prepare
+
+
+@pytest.mark.parametrize("atype,archive", [("-tzstd", "o.zst"), ("-txz", "o.xz"),
+                                           ("-tlz4", "o.lz4")])
+@pytest.mark.parametrize("layout", ["one_file", "two_files", "nested_one", "empty"])
+def test_directory_input_as_tpu7z(tmp_path, monkeypatch, capsys, atype, archive, layout):
+    """A directory is walked: one file in it is the stream; more than one
+    is refused with tpu7z's message and exit code, and so is none."""
+    files = {"one_file": {"d/a.bin": _input()[:9000]},
+             "two_files": {"d/a.bin": _input()[:9000], "d/b.bin": b"second"},
+             "nested_one": {"d/e/f/a.bin": _input()[:9000]},
+             "empty": {"d/e/.keep": b""}}[layout]
+    if layout == "empty":
+        files = {}
+    prepare = _tree(files) if files else (lambda d: (d / "d").mkdir())
+    (ref_rc, ref), (port_rc, port) = _both(tmp_path, monkeypatch, prepare,
+                                           ["a", atype, archive, "d"])
+    err = capsys.readouterr().err.splitlines()
+    assert port_rc == ref_rc
+    assert port == ref
+    if layout in ("two_files", "empty"):
+        assert port_rc == 2 and err[-1] == err[-2]
+        assert err[-1] == (f"ERROR: {atype}: single-stream format, got 2 inputs"
+                           if layout == "two_files" else "ERROR: a: no input files")
+
+
+def test_two_input_files_as_tpu7z(tmp_path, monkeypatch, capsys):
+    """Two inputs with one base name are one file to tpu7z (the later),
+    two with two names are refused."""
+    def prepare(d):
+        (d / "x").mkdir()
+        (d / "x" / "in.bin").write_bytes(b"first" * 300)
+        (d / "in.bin").write_bytes(_input()[:5000])
+        (d / "other.bin").write_bytes(b"other")
+    for inputs, rc in ((["x/in.bin", "in.bin"], 0), (["in.bin", "other.bin"], 2)):
+        sub = tmp_path / str(rc)
+        sub.mkdir()
+        (ref_rc, ref), (port_rc, port) = _both(sub, monkeypatch, prepare,
+                                               ["a", "-tzstd", "o.zst", *inputs])
+        assert port_rc == ref_rc == rc
+        assert port == ref
+    capsys.readouterr()
+
+
+def _archives():
+    """(name, its content's archive type) for the extract-name cases: a
+    zstd frame under a.lz4.zst, an lz4 frame under a.zst.lz4, and .xz
+    streams under NAME and NAME.xz (found by magic and by extension)."""
+    from tpu7z_torch.containers import xz
+    from tpu7z_torch.models.lz4 import frame as tframe
+    from tpu7z_torch.models.zstd import frame as zframe
+    data = _input()[:30000]
+    return data, {"a.lz4.zst": zframe.compress(data), "a.zst.lz4": tframe.compress_frame(data),
+                  "NAME": xz.compress(data), "NAME.xz": xz.compress(data)}
+
+
+@pytest.mark.parametrize("mt", [[], ["-mmt1"], ["-mmt4"]], ids=["default", "mmt1", "mmt4"])
+@pytest.mark.parametrize("archive", ["a.lz4.zst", "a.zst.lz4", "NAME", "NAME.xz"])
+def test_extract_names_as_tpu7z(tmp_path, monkeypatch, capsys, archive, mt):
+    """`x` names its output as tpu7z does: by default every known
+    extension stripped in turn, at -mmt1 the first stripped or `.out`
+    added; the archive sits beside the output directory."""
+    data, archives = _archives()
+    (ref_rc, ref), (port_rc, port) = _both(
+        tmp_path, monkeypatch, lambda d: (d / archive).write_bytes(archives[archive]),
+        ["x", archive, "-oout", *mt])
+    assert port_rc == ref_rc == 0
+    assert port == ref
+    outs = [k for k in port if k.startswith("out")]
+    assert len(outs) == 1 and port[outs[0]] == data
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("mt", [[], ["-mmt1"]], ids=["default", "mmt1"])
+def test_extract_never_writes_over_its_archive(workdir, capsys, mt):
+    """An archive with no known extension extracted into its own
+    directory: tpu7z's default name is the archive's own path, and it
+    would overwrite its input; the port adds `.out` there, the -mmt1
+    name (a reference behaviour not reproduced, ROADMAP.md)."""
+    data, archives = _archives()
+    (workdir / "NAME").write_bytes(archives["NAME"])
+    assert main(["x", "NAME", *mt]) == 0
+    assert (workdir / "NAME").read_bytes() == archives["NAME"]
+    assert (workdir / "NAME.out").read_bytes() == data
+    assert capsys.readouterr().out == f"extracted NAME.out ({len(data)} bytes)\n"
+
+
+@pytest.mark.parametrize("switches,archive", [
+    (["-txz"], "o.xz"), ([], "o.xz"), (["-txz", "-mx9"], "o.xz"), (["-txz"], "o.bin"),
+    (["-txz", "-mmt4"], "o.xz"), (["-txz", "-so"], "o.xz")],
+    ids=["type", "extension", "level_ignored", "type_other_name", "mmt", "stdout"])
+def test_add_xz_as_tpu7z(tmp_path, monkeypatch, capsysbinary, switches, archive):
+    """`a -txz` or an .xz name: tpu7z's .xz bytes, one block of LZMA2 with
+    a CRC64 check, whatever the level; `t` and `x` read it back by
+    extension or by magic."""
+    monkeypatch.delenv("TPU7Z_DEVICE", raising=False)
+    data = _input()
+    (ref_rc, ref), (port_rc, port) = _both(
+        tmp_path, monkeypatch, lambda d: (d / "input.bin").write_bytes(data),
+        ["a", *switches, archive, "input.bin"])
+    outs = capsysbinary.readouterr().out
+    assert port_rc == ref_rc == 0
+    assert port == ref
+    if "-so" in switches:
+        half = len(outs) // 2
+        assert outs[:half] == outs[half:]
+        framed = outs[:half]
+    else:
+        framed = port[archive]
+    assert std_lzma.decompress(framed) == data
+    (tmp_path / "port" / archive).write_bytes(framed)
+    for mt, name in (([], "o" if archive == "o.xz" else "o.bin"),
+                     (["-mmt1"], "o" if archive == "o.xz" else "o.bin.out")):
+        assert main(["t", archive, *mt]) == 0
+        assert capsysbinary.readouterr().out == b"type=xz files=1\nEverything is Ok\n"
+        assert main(["x", archive, "-oback", *mt]) == 0
+        capsysbinary.readouterr()
+        assert (tmp_path / "port" / "back" / name).read_bytes() == data
+
+
+def test_corrupt_xz_exits_2(workdir, capsys):
+    assert main(["a", "-txz", "o.xz", "input.bin"]) == 0
+    bad = bytearray((workdir / "o.xz").read_bytes())
+    bad[-30] ^= 0xFF
+    (workdir / "bad.xz").write_bytes(bytes(bad))
+    capsys.readouterr()
+    for verb in ("t", "x"):
+        assert main([verb, "bad.xz"]) == 2
+        assert "ERROR: xz:" in capsys.readouterr().err
+    assert not (workdir / "bad").exists()
+

@@ -106,12 +106,11 @@ def test_corrupt_lz4_exits_2(workdir, capsys, kind, message, mt):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["a", "-tzstd", "-mdev", "out.zst", "input.bin"],
-     "-mdev: the device coder writes lz4 only, not zstd"),
-    (["a", "-m0=zstd:wlog=18:dev", "out.zst", "input.bin"],
-     "-mdev: the device coder writes lz4 only, not zstd"),
+    (["a", "-tgzip", "out.gz", "input.bin"], "-tgzip: the port writes only .lz4"),
+    (["a", "-m0=lzma", "out.xz", "input.bin"],
+     "-txz: the port writes only .lz4, .zst and .xz, each with its own codec"),
     (["a", "-tzstd", "-mmt=p50", "out.zst", "input.bin"], "-mmt=p50"),
-    (["a", "-txz", "out.xz", "input.bin"], "-txz: the port writes only .lz4 and .zst"),
+    (["a", "-t7z", "-mdev", "out.7z", "input.bin"], "-t7z: the port writes only .lz4"),
 ])
 def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
     assert main(args, device="cpu") == 2

@@ -125,7 +125,7 @@ def test_greedy_walk_equals_tpu7z(start):
     step = np.where(rng.random(n) < 0.3, rng.integers(4, 300, n), 1)
     nxt = np.arange(n) + step
     want = jcomp._greedy_parse_from(nxt.astype(np.int64), n, start)
-    got = tcomp._greedy_parse_from(_cpu(nxt.astype(np.int64)), n, start)
+    got = hash_chain.greedy_walk(_cpu(nxt.astype(np.int64)), n, start)
     assert np.array_equal(np.nonzero(got[:n].numpy())[0], want)
 
 

@@ -11,6 +11,14 @@ a cap on it is known, and `decompress_block_ref`, its plain numpy twin,
 which serves calls that know neither. `compress_block_native` is the same
 library's greedy encoder, the host tier that benchmarks set beside the
 device encoder. A failed build of the library raises.
+
+`compress_block` and `compress_block_continuation` dispatch as tpu7z's
+(tpu7z/models/lz4/block.py:339,401): the library's encoder where tpu7z
+takes its own (accel 1, hashlog 16), else tpu7z's data-parallel parse
+as tensor code on the device of the caller's choice (the CUDA card
+unless `device` names the CPU; ops/hash_chain.py: candidates after one
+`sort_rows`, exact match lengths, the pointer-doubling walk), then the
+host emitter `_emit_sequences`, giving tpu7z's bytes.
 """
 
 from __future__ import annotations
@@ -18,11 +26,17 @@ from __future__ import annotations
 import ctypes
 
 import numpy as np
+import torch
 
-from ...ops import _build
+from ...device import resolve_device
+from ...ops import _build, hash_chain
+from ...utils import trace
 from ...utils.errors import CorruptError  # noqa: F401  (re-exported)
 
 MIN_MATCH = 4
+MF_LIMIT = 12      # a match does not start within the last 12 bytes
+LAST_LITERALS = 5  # the last 5 bytes are literals
+MAX_OFFSET = 0xFFFF
 
 _ERRORS = {-1: "truncated input", -2: "invalid offset", -3: "output overflow"}
 _lib = None
@@ -176,6 +190,70 @@ def compress_block_continuation_native(chunk, window) -> bytes:
     return dst[:r].tobytes()
 
 
+def _tensor_parse(s: np.ndarray, w0: int, hashlog: int, device):
+    """(mpos, mlen, moff), int64 numpy arrays: tpu7z's greedy parse of
+    s[w0:] (block.py:369-396, :433-461) with s[:w0] as history, on
+    `device`: candidates by a stable hash sort, their exact lengths up to
+    the last literals, the walk from w0."""
+    dev = resolve_device(device)
+    t = torch.from_numpy(s.copy()).to(dev)
+    n = t.numel()
+    cand = hash_chain.find_candidates(t, hashlog)
+    pos_all = torch.arange(cand.numel(), dtype=torch.int64, device=dev)
+    offset = pos_all - cand
+    valid = ((cand >= 0) & (offset <= MAX_OFFSET) & (pos_all >= w0)
+             & (pos_all <= n - MF_LIMIT - 1))
+    vidx = torch.nonzero(valid).flatten()
+    mlen = torch.zeros_like(cand)
+    mlen[vidx] = hash_chain.match_lengths(t, vidx, cand[vidx], (n - LAST_LITERALS) - vidx)
+    valid &= mlen >= MIN_MATCH
+    next_pos = torch.where(valid, pos_all + mlen, pos_all + 1)
+    visited = hash_chain.greedy_walk(next_pos[w0:] - w0, n - w0)
+    sel = torch.nonzero(visited[:cand.numel() - w0] & valid[w0:]).flatten() + w0
+    return sel.cpu().numpy(), mlen[sel].cpu().numpy(), offset[sel].cpu().numpy()
+
+
+def _emit(s: np.ndarray, mpos, mlen, moff) -> bytes:
+    with trace.span("lz4.emit", size=s.size):
+        return _emit_sequences(s, mpos, mlen, moff)
+
+
+def compress_block(src, accel: int = 1, hashlog: int = 16, use_native: bool = True,
+                   device=None) -> bytes:
+    """One greedy LZ4 block of `src`, tpu7z's `compress_block`: the host
+    library's encoder (`compress_block_native`) where tpu7z takes its own,
+    use_native with accel 1 and hashlog 16 on a non-empty input; else
+    tpu7z's data-parallel parse at `hashlog` as tensor code on `device`
+    (the card unless it names the CPU), emitted on the host."""
+    if use_native and accel == 1 and hashlog == 16 and len(src) > 0:
+        return compress_block_native(src)
+    s = np.frombuffer(bytes(src), dtype=np.uint8)
+    if s.size == 0:
+        return b"\x00"
+    if s.size < MF_LIMIT + 1:
+        return _emit_all_literal(s)
+    return _emit(s, *_tensor_parse(s, 0, hashlog, device))
+
+
+def compress_block_continuation(chunk, window, hashlog: int = 16, device=None) -> bytes:
+    """One linked LZ4 block of `chunk` whose matches may reach back into
+    `window` (the content before it, at most its last 64 KiB), tpu7z's
+    `compress_block_continuation`: the host library's encoder at hashlog
+    16 on a non-empty chunk, else the tensor parse from the window's end
+    on `device`."""
+    if hashlog == 16 and len(chunk) > 0:
+        return compress_block_continuation_native(chunk, window)
+    w = np.frombuffer(bytes(window), dtype=np.uint8)
+    c = np.frombuffer(bytes(chunk), dtype=np.uint8)
+    if c.size == 0:
+        return b"\x00"
+    if c.size < MF_LIMIT + 1:
+        return _emit_all_literal(c)
+    s = np.concatenate([w, c])
+    mpos, mlen, moff = _tensor_parse(s, w.size, hashlog, device)
+    return _emit(c, mpos - w.size, mlen, moff)
+
+
 def merge_adjacent_matches(mpos: np.ndarray, mlen: np.ndarray,
                            moff: np.ndarray):
     """Merge chains of matches where one ends exactly where the next
@@ -193,6 +271,11 @@ def merge_adjacent_matches(mpos: np.ndarray, mlen: np.ndarray,
     total = np.zeros(first.size, dtype=np.int64)
     np.add.at(total, group, mlen)
     return mpos[first], total, moff[first]
+
+
+def _emit_all_literal(s: np.ndarray) -> bytes:
+    empty = np.empty(0, np.int64)
+    return _emit_sequences(s, empty, empty, empty)
 
 
 def _lsic_count(x: np.ndarray) -> np.ndarray:

@@ -14,8 +14,8 @@ the last 64 KiB of the content before it.
 The device paths write two descriptors: FLG 0x60 BD 0x40 (`HEADER`, the
 device encoder's frame: no checksums, no content size) and FLG 0x6C
 (independent blocks, content size and content checksum) from the device
-match finder; `compress_frame`, the host encoder, writes tpu7z's frames
-with any of their options.
+match finder; `compress_frame` writes tpu7z's frames with any of their
+options: by the host library at accel 1, by the tensor parse otherwise.
 Skippable frames (magic 0x184D2A50..5F, a u32le size and that many bytes)
 carry the skippable container's sizes; the decoder skips them. The
 decoder takes every frame tpu7z's takes: reserved bits are ignored, and
@@ -191,13 +191,15 @@ def decompress(src: bytes, verify_checksums: bool = True) -> bytes:
 def compress_frame(data: bytes, block_size: int = 1 << 22,
                    content_checksum: bool = True, content_size: bool = True,
                    block_checksum: bool = False,
-                   block_independence: bool = True) -> bytes:
-    """One .lz4 frame of `data` by the host encoder, the bytes of tpu7z's
-    `compress_frame` (tpu7z/models/lz4/frame.py:43): blocks of
-    `block_size` (4 MiB by default), each `compress_block_native`, or,
-    where blocks are linked, `compress_block_continuation_native` behind
-    the last 64 KiB before it; a block stored raw where that is not
-    longer."""
+                   block_independence: bool = True, accel: int = 1,
+                   device=None) -> bytes:
+    """One .lz4 frame of `data`, the bytes of tpu7z's `compress_frame`
+    (tpu7z/models/lz4/frame.py:43): blocks of `block_size` (4 MiB by
+    default), each `compress_block(chunk, accel)`, or, where blocks are
+    linked, `compress_block_continuation` behind the last 64 KiB before
+    it; a block stored raw where that is not longer. At accel 1 every
+    block is the host library's; at another accel, tpu7z's data-parallel
+    parse runs on `device` (the card unless it names the CPU)."""
     code = _pick_bd(block_size)
     bsize = min(block_size, _BD_SIZES[code])
     flg = (FLG_VERSION | (FLG_INDEPENDENT if block_independence else 0)
@@ -212,10 +214,10 @@ def compress_frame(data: bytes, block_size: int = 1 << 22,
     for start in range(0, len(data), bsize):
         chunk = data[start:start + bsize]
         if block_independence or start == 0:
-            comp = lz4block.compress_block_native(chunk)
+            comp = lz4block.compress_block(chunk, accel=accel, device=device)
         else:
-            comp = lz4block.compress_block_continuation_native(
-                chunk, data[max(start - WINDOW, 0):start])
+            comp = lz4block.compress_block_continuation(
+                chunk, data[max(start - WINDOW, 0):start], device=device)
         record = block_record(chunk, comp)
         out += record
         if block_checksum:

@@ -26,8 +26,6 @@ stage's.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
@@ -45,44 +43,9 @@ MIN_MATCH = 3
 _NO_SCORE = -(1 << 30)
 
 
-@contextlib.contextmanager
-def _stage(name: str, device):
-    """A trace span around a stage whose work runs on `device`, the card
-    synchronized at both ends; nothing when tracing is off."""
-    if not _trace.enabled():
-        yield
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    with _trace.span(name):
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-
 # ---------------------------------------------------------------------------
 # Sequence extraction: tensor code
 # ---------------------------------------------------------------------------
-
-def _greedy_parse_from(next_pos, n: int, start: int):
-    """bool (n + 1,): the positions the greedy cursor visits from `start`
-    by following next_pos (a position's successor, n past the end), found
-    by pointer doubling: each step adds the successors of the positions
-    reached so far and squares the successor map, so after k steps the
-    first 2**k positions of the walk are reached; ceil(log2(n + 1)) steps
-    reach all of it, the set tpu7z's `_greedy_parse_from` returns."""
-    dev = next_pos.device
-    jump = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
-    jump[:n] = next_pos.clamp(max=n)
-    reach = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    reach[start] = 1
-    steps = 1
-    while steps < n + 1:
-        reach = reach.scatter_reduce(0, jump, reach, "amax")
-        jump = jump[jump]
-        steps *= 2
-    return reach > 0
-
 
 def _parse_segment(s, base: int, hashlog: int, max_offset: int,
                    depth: int = 2, lazy: int = 0):
@@ -100,9 +63,9 @@ def _parse_segment(s, base: int, hashlog: int, max_offset: int,
     empty = torch.empty(0, dtype=torch.int64, device=dev)
     if n - base < 16:
         return empty, empty, empty
-    with _stage("zstd.sort", dev):
+    with _trace.stage("zstd.sort", dev):
         cands = hash_chain.find_candidates_multi(s, hashlog, depth)
-    with _stage("zstd.match_lengths", dev):
+    with _trace.stage("zstd.match_lengths", dev):
         phash = hash_chain.build_prefix_hash(s)
         m = cands[0].numel()
         pos_all = torch.arange(m, dtype=torch.int64, device=dev)
@@ -124,7 +87,7 @@ def _parse_segment(s, base: int, hashlog: int, max_offset: int,
             best_score = torch.where(better, score, best_score)
             best_len = torch.where(better, mlen, best_len)
             best_off = torch.where(better, offset, best_off)
-    with _stage("zstd.walk", dev):
+    with _trace.stage("zstd.walk", dev):
         valid = best_len >= 4
         # lazy deferral: a match at p yields to a strictly better one at
         # p + 1 (the cost of deferring, one literal, about 6 bits)
@@ -137,7 +100,7 @@ def _parse_segment(s, base: int, hashlog: int, max_offset: int,
         next_pos = torch.where(valid, pos_all + best_len, pos_all + 1)
         full_next = torch.full((n,), n, dtype=torch.int64, device=dev)
         full_next[:m] = next_pos
-        visited = _greedy_parse_from(full_next, n, base)
+        visited = hash_chain.greedy_walk(full_next, n, base)
         take = visited[:m] & valid
         sel = torch.nonzero(take).flatten()
     return sel, best_len[sel], best_off[sel]
@@ -576,7 +539,7 @@ def compress(data: bytes, level: int = 3, checksum: bool = True,
     else:
         mpos, mlen, moff = (t.cpu().numpy() for t in find_sequences_windowed(
             s, hashlog, wlog, depth=depth, lazy=lazy, device=dev))
-        with _stage("zstd.entropy", torch.device("cpu")):
+        with _trace.stage("zstd.entropy", torch.device("cpu")):
             out += _blocks(s, mpos, mlen, moff, block_size)
     if checksum:
         out += (xxh64_native(s) & 0xFFFFFFFF).to_bytes(4, "little")

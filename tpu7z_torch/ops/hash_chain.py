@@ -1,11 +1,15 @@
-"""Depth-k hash chains and exact match lengths of one byte row, as tensor
-code: the candidate search of the zstd tensor encoder, on the device of
-its input (the CUDA card, or the CPU when the caller names it).
+"""Hash chains, exact match lengths and the greedy walk of one byte row,
+as tensor code on the device of its input (the CUDA card, or the CPU when
+the caller names it): the LZ matcher that tpu7z runs as data-parallel
+numpy, shared by its LZ4 parse, its LZMA fast parse and the zstd tensor
+encoder.
 
 The counterparts of tpu7z/models/lz4/block.py `_u32_at` (:135),
-`_find_candidates_multi` (:173), `build_prefix_hash` (:240),
-`_modinv_pow2` (:271) and `match_lengths_hashed` (:280), giving the same
-values bit for bit:
+`_find_candidates` (:145), `_find_candidates_multi` (:173),
+`_match_lengths` (:195), `build_prefix_hash` (:240), `_modinv_pow2`
+(:271), `match_lengths_hashed` (:280) and `_greedy_parse` (:321), and of
+tpu7z/models/lzma/encoder.py `_parse_from` (:237), giving the same values
+bit for bit:
 
   word at every position   little-endian u32 of s[p:p+4], n - 3 of them
   hash                     (word * HASH_MULT mod 2**32) >> (32 - hashlog)
@@ -13,29 +17,41 @@ values bit for bit:
                            sort_cuda.py on the card (no torch.sort there)
   depth-k candidates       the d-th sorted neighbour before p with p's
                            hash, its word verified equal, d = 1..k
+  exact match lengths      `match_lengths`: a position whose successor
+                           continues its match at the same offset takes
+                           the successor's length plus one; the others
+                           compare byte panels that widen pass by pass
   prefix hash              H[i] = hash of s[:i] under h * A + (byte + 1)
                            mod 2**64, with A's powers and inverse powers
-  match lengths            a gallop of doubling probes, then a binary
+  hashed match lengths     a gallop of doubling probes, then a binary
                            refine, each probe one O(1) compare of two
                            substring hashes
+  greedy walk              `greedy_walk`: the positions a cursor visits
+                           by pointer doubling
 
 The 64-bit arithmetic runs on int64 tensors: +, - and * wrap modulo 2**64
 in two's complement, which gives the bits numpy's uint64 gives. Powers
 are built by binary exponentiation (one multiply a bit of the exponent),
-never by `cumprod`. The probe loops read the size of their active set
-back to the host once a step; `STEPS` counts those steps.
+never by `cumprod`. The probe and panel loops read the size of their
+active set back to the host once a step, to compact it; `STEPS` counts
+the probe loops' steps.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import match
 from .lz4_plane import _mul32
 
 HASH_MULT = 2654435761
 POLY_A = 0x9E3779B97F4A7C15 | 1
 MIN_MATCH = 3
+VERIFIED = 4            # bytes a verified candidate is known to share
+PANEL = 16              # bytes compared by the first panel pass
+PANEL_MAX = 1 << 12     # the widest panel
+PANEL_BUDGET = 1 << 22  # byte pairs gathered by one panel pass at most
 _M64 = (1 << 64) - 1
 
 # host round trips of the probe loops since the last reset
@@ -73,16 +89,27 @@ def hashes(v, hashlog: int):
     return _mul32(v, HASH_MULT) >> (32 - hashlog)
 
 
+def find_candidates(s, hashlog: int = 16):
+    """int64 (n - 3,): cand[p] is the most recent q < p whose hash and
+    word equal p's, else -1 (tpu7z's `_find_candidates`): depth 1 of
+    `find_candidates_multi`, one stable sort of the hashes (`sort_rows`
+    on the card). A span `lz.sort` when tracing is on."""
+    with trace.stage("lz.sort", s.device):
+        return find_candidates_multi(s, hashlog, 1)[0]
+
+
 def find_candidates_multi(s, hashlog: int = 16, depth: int = 2):
     """[cand_1, ..., cand_depth], each int64 (n - 3,): cand_d[p] is the
     d-th most recent q < p whose hash equals p's and whose word equals
     p's, else -1. One stable sort of the hashes; deeper candidates are
     earlier sorted neighbours."""
     v = u32_at(s)
+    m = v.numel()
+    if m == 0:
+        return [torch.full((0,), -1, dtype=torch.int64, device=s.device)] * depth
     h = hashes(v, hashlog)
     order = match.sort_order(h[None], hashlog)[0]
     sh = h[order]
-    m = v.numel()
     out = []
     for d in range(1, depth + 1):
         cand = torch.full((m,), -1, dtype=torch.int64, device=s.device)
@@ -92,6 +119,107 @@ def find_candidates_multi(s, hashlog: int = 16, depth: int = 2):
         ok = (cand >= 0) & (v[cand.clamp(min=0)] == v)
         out.append(torch.where(ok, cand, -1))
     return out
+
+
+def _panel_lengths(s, a, b, bound):
+    """int64: the number of leading bytes on which s[a:] and s[b:] agree,
+    at most `bound` (each a[i] + bound[i] and b[i] + bound[i] within s):
+    byte panels compared pass by pass, a panel twice as wide as the last
+    (at most PANEL_MAX, and PANEL_BUDGET byte pairs a pass), the rows
+    still equal over their whole panel kept for the next."""
+    dev = s.device
+    last = s.numel() - 1
+    run = torch.zeros_like(bound)
+    active = torch.nonzero(bound > 0).flatten()
+    width = PANEL
+    while active.numel():
+        width = max(PANEL, min(width, PANEL_BUDGET // active.numel()))
+        done = run[active]
+        span = torch.clamp(bound[active] - done, max=width)
+        offs = torch.arange(width, dtype=torch.int64, device=dev)
+        ia = (a[active] + done)[:, None] + offs
+        ib = (b[active] + done)[:, None] + offs
+        inside = offs < span[:, None]
+        eq = (s[ia.clamp(max=last)] == s[ib.clamp(max=last)]) & inside
+        # the first byte that differs, or the end of the span
+        lead = torch.cumprod(eq.to(torch.int32), 1).sum(1).to(torch.int64)
+        run[active] = done + lead
+        active = active[(lead == span) & (done + span < bound[active])]
+        width = min(2 * width, PANEL_MAX)
+    return run
+
+
+def match_lengths(s, pos, cand, limit):
+    """int64: tpu7z's `_match_lengths` (block.py:195) of the uint8 row `s`,
+    each entry 4 plus the number of leading bytes past the first 4 on
+    which s[pos:] and s[cand:] agree, at most limit - 4: the exact common
+    prefix of a verified candidate capped by `limit`. `pos` holds
+    distinct positions, `cand` earlier ones, and pos + limit <= len(s).
+
+    tpu7z widens byte panels until each row mismatches; its `depth > n`
+    break never ends a row early (a row still active after a pass has
+    matched all of its panels and still lies below its limit <= n). Here
+    a position p whose successor p + 1 is in `pos` with candidate
+    cand + 1, and whose byte p + 4 equals cand + 4, has the successor's
+    common prefix plus one: such links form chains, and only each chain's
+    last position compares panels (`_panel_lengths`), up to the most any
+    position of its chain can use. A span `lz.match_lengths` when tracing
+    is on."""
+    dev = s.device
+    n = s.numel()
+    with trace.stage("lz.match_lengths", dev):
+        pos = pos.to(torch.int64)
+        cand = cand.to(torch.int64)
+        cap = (limit.to(torch.int64) - VERIFIED).clamp(min=0)
+        if pos.numel() == 0:
+            return cap + VERIFIED
+        plane = torch.full((n + 1,), -1, dtype=torch.int64, device=dev)
+        plane[pos] = cand
+        at = pos + VERIFIED
+        inside = at < n
+        last = n - 1
+        same = s[at.clamp(max=last)] == s[(cand + VERIFIED).clamp(max=last)]
+        link = inside & same & (plane[(pos + 1).clamp(max=n)] == cand + 1)
+        # each position's chain end: the first unlinked position at or after
+        # it, a suffix minimum over the plane
+        mark = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+        mark[pos] = torch.where(link, n, pos)
+        end = torch.cummin(mark.flip(0), 0).values.flip(0)[pos]
+        # what the chain end's panels must cover for every position behind it
+        dist = end - pos
+        need = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        need.scatter_reduce_(0, end, cap - dist, "amax", include_self=True)
+        ends = pos[~link]
+        ec = plane[ends]
+        room = (n - (ends + VERIFIED)).clamp(min=0)
+        bound = torch.minimum(need[ends], room)
+        tail = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        tail[ends] = _panel_lengths(s, ends + VERIFIED, ec + VERIFIED, bound)
+        return VERIFIED + torch.minimum(dist + tail[end], cap)
+
+
+def greedy_walk(next_pos, n: int, start: int = 0):
+    """bool (n + 1,): the positions a greedy cursor visits from `start`
+    by following next_pos (a position's successor, int64, one entry for
+    each of the first len(next_pos) <= n positions; the others, and any
+    successor past n, lead to n): tpu7z's `_greedy_parse` (block.py:321)
+    and `_parse_from` (lzma/encoder.py:237) as a mask. Pointer doubling:
+    each step adds the successors of the positions reached so far and
+    squares the successor map, so after k steps the first 2**k positions
+    of the walk are reached; ceil(log2(n + 1)) steps reach all of it. A
+    span `lz.walk` when tracing is on."""
+    dev = next_pos.device
+    with trace.stage("lz.walk", dev):
+        jump = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+        jump[:next_pos.numel()] = next_pos.clamp(max=n)
+        reach = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        reach[start] = 1
+        steps = 1
+        while steps < n + 1:
+            reach = reach.scatter_reduce(0, jump, reach, "amax")
+            jump = jump[jump]
+            steps *= 2
+        return reach > 0
 
 
 def powers(base: int, count: int, device):

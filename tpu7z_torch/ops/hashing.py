@@ -4,7 +4,10 @@ each: `xxh32` and `xxh64` in Python (the spec's twins; `xxh32` serves
 the .lz4 frames' 2- to 10-byte header checksums, so importing a frame
 module builds nothing) and `xxh32_native` and `xxh64_native`, the host
 library built from csrc/xxh32.cpp (the content checksums, over whole
-inputs)."""
+inputs). CRC-32 (zlib's) and CRC-64 (the .xz check), twice each:
+`crc32` and `crc64`, table-driven Python as tpu7z/ops/hashing.py:153-224
+has them (the twins), and `crc32_native` and `crc64_native`, the host
+library built from csrc/crc.cpp (the .xz container's checks)."""
 
 from __future__ import annotations
 
@@ -137,13 +140,83 @@ def xxh64(data, seed: int = 0) -> int:
     return h
 
 
+def _make_crc32_table() -> np.ndarray:
+    table = np.empty((8, 256), dtype=np.uint32)
+    poly = np.uint32(0xEDB88320)
+    t0 = np.empty(256, dtype=np.uint32)
+    for i in range(256):
+        c = np.uint32(i)
+        for _ in range(8):
+            c = (c >> np.uint32(1)) ^ (poly if (c & np.uint32(1)) else np.uint32(0))
+        t0[i] = c
+    table[0] = t0
+    for k in range(1, 8):
+        table[k] = (table[k - 1] >> np.uint32(8)) ^ t0[table[k - 1] & np.uint32(0xFF)]
+    return table
+
+
+def _make_crc64_table() -> np.ndarray:
+    table = np.empty((8, 256), dtype=np.uint64)
+    poly = np.uint64(0xC96C5795D7870F42)
+    t0 = np.empty(256, dtype=np.uint64)
+    for i in range(256):
+        c = np.uint64(i)
+        for _ in range(8):
+            c = (c >> np.uint64(1)) ^ (poly if (c & np.uint64(1)) else np.uint64(0))
+        t0[i] = c
+    table[0] = t0
+    for k in range(1, 8):
+        table[k] = (table[k - 1] >> np.uint64(8)) ^ t0[table[k - 1] & np.uint64(0xFF)]
+    return table
+
+
+_CRC32_TABLE = _make_crc32_table()
+_CRC64_TABLE = _make_crc64_table()
+
+
+def crc32(data, crc: int = 0) -> int:
+    """CRC-32/ISO-HDLC, equal to zlib.crc32: slice-by-8 table lookups."""
+    data = np.frombuffer(bytes(data), dtype=np.uint8) if not isinstance(
+        data, np.ndarray) else data
+    c = np.uint32(crc ^ 0xFFFFFFFF)
+    t = _CRC32_TABLE
+    n = data.size
+    n8 = n & ~7
+    if n8:
+        words = data[:n8].reshape(-1, 8)
+        for i in range(words.shape[0]):
+            row = words[i]
+            lo = np.uint32(int(c)
+                           ^ (int(row[0]) | (int(row[1]) << 8)
+                              | (int(row[2]) << 16) | (int(row[3]) << 24)))
+            c = (t[7][lo & np.uint32(0xFF)]
+                 ^ t[6][(lo >> np.uint32(8)) & np.uint32(0xFF)]
+                 ^ t[5][(lo >> np.uint32(16)) & np.uint32(0xFF)]
+                 ^ t[4][(lo >> np.uint32(24)) & np.uint32(0xFF)]
+                 ^ t[3][row[4]] ^ t[2][row[5]] ^ t[1][row[6]] ^ t[0][row[7]])
+    for b in data[n8:]:
+        c = (c >> np.uint32(8)) ^ t[0][(c ^ np.uint32(b)) & np.uint32(0xFF)]
+    return int(c ^ np.uint32(0xFFFFFFFF))
+
+
+def crc64(data, crc: int = 0) -> int:
+    """CRC-64/XZ (ECMA-182 reflected), the .xz container's check."""
+    data = np.frombuffer(bytes(data), dtype=np.uint8) if not isinstance(
+        data, np.ndarray) else data
+    c = np.uint64(crc ^ _M64)
+    t = _CRC64_TABLE
+    for b in data:
+        c = (c >> np.uint64(8)) ^ t[0][(c ^ np.uint64(b)) & np.uint64(0xFF)]
+    return int(c ^ np.uint64(_M64))
+
+
 _native = {}
 
 
-def _function(name: str, width):
+def _function(name: str, width, library: str = "xxh32"):
     fn = _native.get(name)
     if fn is None:
-        fn = getattr(_build.load("xxh32"), name)
+        fn = getattr(_build.load(library), name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, width]
         fn.restype = width
         _native[name] = fn
@@ -168,3 +241,17 @@ def xxh64_native(data, seed: int = 0) -> int:
     `xxh64`."""
     buf = _buffer(data)
     return _function("tz_xxh64", ctypes.c_uint64)(buf.ctypes.data, buf.size, seed & _M64)
+
+
+def crc32_native(data, crc: int = 0) -> int:
+    """CRC-32 of `data` continuing `crc` by the host library built from
+    csrc/crc.cpp; equal to `crc32` and zlib.crc32. A failed build raises."""
+    buf = _buffer(data)
+    return _function("tz_crc32", ctypes.c_uint32, "crc")(buf.ctypes.data, buf.size, crc & _M32)
+
+
+def crc64_native(data, crc: int = 0) -> int:
+    """CRC-64/XZ of `data` continuing `crc` by the same library; equal to
+    `crc64`."""
+    buf = _buffer(data)
+    return _function("tz_crc64", ctypes.c_uint64, "crc")(buf.ctypes.data, buf.size, crc & _M64)

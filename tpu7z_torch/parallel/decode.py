@@ -11,9 +11,9 @@ Independent spans:
          headers without decoding (Block_Header carries Block_Size;
          RFC 8878 3.1.1.2.2);
   lz4:   the blocks of a block-independent frame (each size-prefixed);
-         a linked-block frame decodes serially.
-tpu7z's third span source, LZMA2 chunk groups, waits for the port of
-LZMA.
+         a linked-block frame decodes serially;
+  lzma2: chunk groups that begin with a dictionary reset (the
+         C/Lzma2DecMt.c model), found by walking chunk headers.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 
 from ..models.lz4 import frame as lframe
+from ..models.lzma import lzma2 as l2
 from ..models.zstd import frame as zframe
 from ..utils.errors import CorruptError
 
@@ -121,3 +122,68 @@ def decompress_lz4(src: bytes, threads: int | None = None,
         return b"".join(lframe._content(*f, verify_checksums) for f in frames)
     with ThreadPoolExecutor(max_workers=workers) as pool:
         return b"".join(lframe._content(*f, verify_checksums, pool.map) for f in frames)
+
+
+# -------------------------------------------------------------- lzma2 ---
+
+def scan_lzma2_groups(src: bytes) -> list[tuple[int, int]]:
+    """Spans of chunk groups separated by dictionary resets.  Each group
+    decodes independently (its first chunk resets the dictionary)."""
+    groups = []
+    pos = 0
+    n = len(src)
+    start = None
+    while pos < n:
+        ctrl = src[pos]
+        if ctrl == 0:
+            pos += 1
+            break
+        if ctrl < 0x80:
+            if ctrl > 2:
+                raise CorruptError(f"lzma2: bad control byte {ctrl:#x}")
+            if n - pos < 3:
+                raise CorruptError("lzma2: truncated chunk header")
+            usize = int.from_bytes(src[pos + 1:pos + 3], "big") + 1
+            dict_reset = ctrl == 1
+            hlen = 3
+            clen = usize
+        else:
+            reset = (ctrl >> 5) & 3
+            dict_reset = reset == 3
+            if n - pos < 5:
+                raise CorruptError("lzma2: truncated chunk header")
+            csize = int.from_bytes(src[pos + 3:pos + 5], "big") + 1
+            hlen = 5 + (1 if reset >= 2 else 0)
+            clen = csize
+        if dict_reset and start is not None:
+            groups.append((start, pos - start))
+            start = pos
+        if start is None:
+            if not dict_reset:
+                raise CorruptError("lzma2: first chunk must reset dict")
+            start = pos
+        pos += hlen + clen
+        if pos > n:
+            raise CorruptError("lzma2: chunk overruns input")
+    if start is not None:
+        groups.append((start, pos - start if pos <= n else n - start))
+    return groups
+
+
+def decompress_lzma2(src: bytes, threads: int | None = None) -> bytes:
+    """Group-parallel LZMA2 decode (dict-reset boundaries = spans, the
+    C/Lzma2DecMt.c parallel model); serial result bytes guaranteed."""
+    groups = scan_lzma2_groups(src)
+    if len(groups) <= 1:
+        return l2.decompress(src)
+    workers = min(_default_workers(threads), len(groups))
+
+    def one(span):
+        off, size = span
+        # a group plus a synthesized end-of-stream control decodes alone
+        return l2.decompress(src[off:off + size] + b"\x00")
+
+    if workers <= 1:
+        return b"".join(one(g) for g in groups)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return b"".join(pool.map(one, groups))

@@ -9,6 +9,9 @@ no cost until someone attaches or TPU7Z_TRACE is set):
         ...
     trace.detach()
 
+`stage(name, device)` is a span whose work runs on a device: it
+synchronizes the CUDA card at both ends.
+
 and the device profiler, where tpu7z has `tpu_profile`: `profile(logdir)`
 records a `torch.profiler` trace of a region (host activity, and the CUDA
 card's kernels unless the device named is the CPU) into `logdir` as a
@@ -94,6 +97,23 @@ def span(name: str, **fields):
         if size and dt > 0:
             ev["MBps"] = size / dt / 1e6
         _emit(ev)
+
+
+@contextlib.contextmanager
+def stage(name: str, device, **fields):
+    """A span around a stage whose work runs on `device`, the CUDA card
+    synchronized at both ends so that its host-clock time is the
+    stage's; nothing when tracing is off."""
+    if not enabled():
+        yield
+        return
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    with span(name, **fields):
+        yield
+        if cuda:
+            torch.cuda.synchronize(device)
 
 
 @contextlib.contextmanager
