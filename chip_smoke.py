@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit; build the native libraries from
      tpu7z_torch/csrc (the kernels with nvcc, the host libraries with
-     c++: xxh32, CRC, the LZ4, zstd and LZMA codecs), one process per
+     c++: xxh32, CRC, AES, the LZ4, zstd and LZMA codecs), one process per
      source, all at once;
   2. each of the four encoder kernels against its plain PyTorch version
      on the card, exact equality, on test patterns, short blocks, the
@@ -93,7 +93,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      the corpus and its decode (the standard library's of its LZMA2
      stream), `lzma2.compress(shard_size=4 MiB)` over 16 MiB decoded
      serially, in 8 threads and by the standard library, the native CRCs against
-     the Python forms and zlib, and the CLI's `a -txz`, `t` and `x`.
+     the Python forms and zlib, and the CLI's `a -txz`, `t` and `x`;
+ 10. the .7z container on the card: the corpus as eight 4 MiB files in
+     one solid zstd .7z at level 5 (the tensor encoder, one row sort a
+     segment counted; its pack stream equal to phase 8's frame), the same
+     with a password and the header encrypted (the KDF timed, the native
+     CBC encrypt timed and equal to the archive's folder, the card's
+     `decrypt_cbc` of the folder against the same tensor code on the CPU,
+     exactly; the corpus decrypted on the card in two passes, its peak
+     allocation checked), the default LZMA2 .7z of the first 8 MiB as two files, 4
+     MiB as two non-solid zstd folders written on the card and on the CPU
+     (equal), the native encrypt against its Python twin on 64 KiB, and
+     the CLI's `a -t7z -m0=zstd -p -mhe`, `t` and `x`, and every tensor
+     branch filter and delta on the card against the CPU, with an ARM and
+     a delta folder read back; every archive read back on the card.
 The timing helpers are tpu7z_torch/utils/timing.py's, shared with
 bench_torch.py. The line before the last is the per-kernel JSON; the last
 line is the device JSON. Imports nothing of JAX or tpu7z.
@@ -473,7 +486,7 @@ def zstd_phase(corpus, dev, S, M, card_label):
     return {"launches": launches, "shape": list(key.shape), "begin_bit": bb, "ms": ms,
             "sort_order_ms": order_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms, "max_abs_err": err,
-            "encoder_s": t_enc, "stages_s": spans, "probe_steps": steps}
+            "encoder_s": t_enc, "stages_s": spans, "probe_steps": steps, "frame": framed}
 
 
 def lz_phase(corpus, dev, S, M, card_label):
@@ -681,6 +694,256 @@ def lz_phase(corpus, dev, S, M, card_label):
                    "shards_s": t_sh, "shards_serial_s": t_serial, "shards_threads8_s": t_par,
                    "crc32_ms": t32 * 1e3, "crc64_ms": t64 * 1e3}
     return out
+
+
+def sevenzip_phase(corpus, dev, S, card_label, zstd_frame):
+    """Phase 10, the .7z container: (a) the corpus as eight 4 MiB files in
+    one solid zstd .7z at level 5 (the tensor encoder, one row sort a 4
+    MiB segment), its pack stream equal to phase 8's frame; (b) the same
+    with a password and the header encrypted, the KDF, the native encrypt
+    and the card's decrypt of the packed folder against the same tensor
+    code on the CPU, and (a2) the corpus decrypted on the card in two
+    passes; (c) the default LZMA2 .7z of the first 8 MiB as two
+    files; (d) 4 MiB as two non-solid zstd folders written on the card and
+    on the CPU, equal; (e) the native encrypt against its Python twin on
+    64 KiB; (f) the CLI's `a -t7z -m0=zstd -p -mhe`, `t` and `x`; (g) the
+    tensor filters on the card against the CPU. Every archive is read
+    back by SevenZipReader on the card. Returns the
+    numbers for the log and the kernels line."""
+    from tpu7z_torch.containers.sevenzip import SevenZipReader, aes7z, write_archive
+    from tpu7z_torch.ops import _build
+    from tpu7z_torch.utils.timing import timed
+
+    password = "chip smoke"
+    out = {}
+
+    def archive(name, files, **kw):
+        """Write, count the row sorts, read back on the card, check."""
+        size = sum(len(v) for v in files.values())
+        S.reset_launches()
+        t = time.perf_counter()
+        arc = write_archive(files, device=dev, **kw)
+        torch.cuda.synchronize()
+        t_write = time.perf_counter() - t
+        launches = S.LAUNCHES["sort_rows"]
+        t = time.perf_counter()
+        rd = SevenZipReader(arc, password=kw.get("password"), device=dev)
+        back = rd.extract_all()
+        t_read = time.perf_counter() - t
+        if back != files:
+            raise AssertionError(f".7z {name}: extract_all differs from the files written")
+        log(f".7z {name} ({card_label}, host clock): {size} bytes in {len(files)} files -> "
+            f"{len(arc)} bytes, ratio {size / len(arc):.6f}; written in {t_write:.3f} s "
+            f"({size / 1e6 / t_write:.2f} MB/s), {launches} sort_rows launches; read back on "
+            f"the card in {t_read:.3f} s ({size / 1e6 / t_read:.1f} MB/s): equal")
+        out[name] = {"bytes": size, "archive_bytes": len(arc), "ratio": size / len(arc),
+                     "write_s": t_write, "read_s": t_read, "sort_rows_launches": launches}
+        return arc, rd
+
+    files = {f"corpus/{i}.bin": corpus[i << 22:(i + 1) << 22] for i in range(8)}
+    # (a) solid zstd at the CLI's default level: one folder, the corpus
+    # through the tensor encoder; its pack stream is phase 8's frame
+    arc, _ = archive("zstd_solid", files, method="zstd", level=5)
+    if out["zstd_solid"]["sort_rows_launches"] != 8:
+        raise AssertionError(f"solid zstd .7z: {out['zstd_solid']['sort_rows_launches']} row "
+                             f"sorts, expected one a 4 MiB segment (8)")
+    if arc[32:32 + len(zstd_frame)] != zstd_frame:
+        raise AssertionError("solid zstd .7z: its pack stream differs from phase 8's frame")
+    log("solid zstd .7z: its pack stream equals phase 8's tensor-encoder frame")
+
+    # (b) the same, encrypted, header too
+    arc, rd = archive("zstd_solid_aes", files, method="zstd", level=5, password=password,
+                      encrypt_header=True)
+    folder = rd.streams.folders[0]
+    props = folder.coders[1].props
+    packed = arc[32:32 + rd.streams.pack_sizes[0]]
+    cycles, salt, iv = aes7z.parse_props(props)
+    t = time.perf_counter()
+    key = aes7z.derive_key(password, salt, cycles)
+    t_kdf = time.perf_counter() - t
+    padded = zstd_frame + b"\x00" * ((-len(zstd_frame)) % 16)
+    enc, t_enc = best(lambda: aes7z.encrypt_cbc(padded, key, iv))
+    if enc != packed:
+        raise AssertionError("encrypt_cbc of phase 8's frame differs from the archive's folder")
+    ct = torch.frombuffer(bytearray(packed), dtype=torch.uint8).view(-1, 16)
+    ct_card = ct.to(dev)
+    plain_card = aes7z.decrypt_cbc(ct_card, key, iv)
+    torch.cuda.synchronize()
+    plain_cpu, t_cpu = best(lambda: aes7z.decrypt_cbc(ct, key, iv), 1)
+    if not torch.equal(plain_card.cpu(), plain_cpu):
+        raise AssertionError("decrypt_cbc on the card differs from its CPU run")
+    if plain_cpu.numpy().tobytes()[:len(zstd_frame)] != zstd_frame:
+        raise AssertionError("decrypt_cbc does not give the frame back")
+    dec_ms = timed(lambda: aes7z.decrypt_cbc(ct_card, key, iv))
+    mb = len(packed) / 1e6
+    log(f"AES-256 ({card_label}): KDF (2^{cycles} SHA-256 rounds) {t_kdf:.3f} s host clock; "
+        f"native CBC encrypt of the {len(packed)}-byte folder {t_enc:.4f} s ({mb / t_enc:.1f} "
+        f"MB/s, best of 3), equal to the archive's; decrypt_cbc on the card {dec_ms:.3f} ms "
+        f"({mb / dec_ms * 1e3:.1f} MB/s, CUDA events, median of 5), the same tensor code on "
+        f"the CPU {t_cpu:.3f} s ({mb / t_cpu:.1f} MB/s): equal")
+    out["aes"] = {"folder_bytes": len(packed), "kdf_s": t_kdf, "encrypt_s": t_enc,
+                  "encrypt_MBps": mb / t_enc, "decrypt_card_ms": dec_ms,
+                  "decrypt_cpu_s": t_cpu}
+    del ct, ct_card, plain_card, plain_cpu
+    out["aes"].update(aes_passes(corpus, key, iv, dev, card_label))
+
+    # (c) the default method, LZMA2, over the first 8 MiB as two files
+    archive("lzma2_solid", {"a.bin": corpus[:4 << 20], "b.bin": corpus[4 << 20:8 << 20]})
+
+    # (d) 4 MiB as two non-solid zstd folders, on the card and on the CPU
+    two = {"a.bin": corpus[:2 << 20], "b.bin": corpus[2 << 20:4 << 20]}
+    arc, _ = archive("zstd_non_solid", two, method="zstd", level=5, solid=False)
+    t = time.perf_counter()
+    if write_archive(two, method="zstd", level=5, solid=False, device="cpu") != arc:
+        raise AssertionError("non-solid zstd .7z on the card differs from the CPU's")
+    log(f"non-solid zstd .7z of 4 MiB: the CPU's is equal byte for byte "
+        f"({time.perf_counter() - t:.3f} s on the CPU)")
+
+    # (e) the native encrypt against its Python twin
+    head = corpus[:1 << 16]
+    aprops = bytes([19 | 0x40, 0x0F]) + bytes(range(16))
+    t = time.perf_counter()
+    if aes7z.aes_encrypt(head, aprops, password) != aes7z.aes_encrypt_ref(head, aprops, password):
+        raise AssertionError("aes_encrypt differs from aes_encrypt_ref on 64 KiB")
+    log(f"aes_encrypt equals its Python twin on 64 KiB ({time.perf_counter() - t:.2f} s)")
+
+    # (f) the CLI's .7z verbs, each in a process of its own, on the card
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(dir=_build.BUILD))
+    try:
+        head = corpus[:2 << 20]
+        (work / "head.bin").write_bytes(head)
+        env = dict(os.environ, PYTHONPATH=str(root))
+        for args in (["a", "-t7z", "-m0=zstd", f"-p{password}", "-mhe", "head.7z", "head.bin"],
+                     ["t", f"-p{password}", "head.7z"],
+                     ["x", f"-p{password}", "head.7z", "-oout"]):
+            t = time.time()
+            r = subprocess.run([sys.executable, "-m", "tpu7z_torch.cli", *args], cwd=work,
+                               env=env, capture_output=True, text=True, timeout=300)
+            log(f"python -m tpu7z_torch.cli {' '.join(args)}: exit {r.returncode} in "
+                f"{time.time() - t:.1f} s: {r.stdout.strip()!r}")
+            if r.returncode != 0:
+                raise AssertionError(f"the CLI failed:\n{r.stdout}\n{r.stderr}")
+        if (work / "out" / "head.bin").read_bytes() != head:
+            raise AssertionError("the CLI's .7z does not extract to its input")
+        back = SevenZipReader((work / "head.7z").read_bytes(), password=password,
+                              device=dev).extract_all()
+        if back != {"head.bin": head}:
+            raise AssertionError("the CLI's .7z does not read back to its input")
+        log("the CLI's encrypted zstd .7z extracts to its input")
+    finally:
+        shutil.rmtree(work)
+
+    # (g) the branch converters and delta on the card
+    out["filters"] = filter_checks(dev, card_label)
+    return out
+
+
+def aes_passes(corpus, key, iv, dev, card_label):
+    """The card's decrypt_cbc over more than one pass of CHUNK_BLOCKS
+    blocks: the corpus encrypted natively (held to its Python twin in
+    (e)) and decrypted on the card, equal to the corpus. Its allocations
+    over 16 MiB (one pass) and over 32 MiB (two) differ by the extra
+    output alone, since the temporaries are a pass's."""
+    from tpu7z_torch.containers.sevenzip import aes7z
+    from tpu7z_torch.utils.timing import timed
+
+    chunk_bytes = aes7z.CHUNK_BLOCKS * 16
+    if len(corpus) != 2 * chunk_bytes:
+        raise AssertionError(f"the corpus is not two passes of {chunk_bytes} bytes")
+    t = time.perf_counter()
+    ct = torch.frombuffer(bytearray(aes7z.encrypt_cbc(corpus, key, iv)),
+                          dtype=torch.uint8).view(-1, 16).to(dev)
+    t_enc = time.perf_counter() - t
+    peaks = {}
+    for n in (chunk_bytes, 2 * chunk_bytes):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        plain = aes7z.decrypt_cbc(ct[:n // 16], key, iv)
+        torch.cuda.synchronize()
+        peaks[n] = torch.cuda.max_memory_allocated() - base
+        if plain.cpu().numpy().tobytes() != corpus[:n]:
+            raise AssertionError(f"decrypt_cbc of {n} bytes on the card does not give the "
+                                 f"corpus back")
+        del plain
+    grew = peaks[2 * chunk_bytes] - peaks[chunk_bytes]
+    if grew > chunk_bytes * 3 // 2:
+        raise AssertionError(f"decrypt_cbc: 16 MiB more ciphertext took {grew} bytes more "
+                             f"of the card's memory; a pass's temporaries should not grow")
+    ms = timed(lambda: aes7z.decrypt_cbc(ct, key, iv))
+    log(f"AES-256 over two passes ({card_label}): the 32 MiB corpus encrypted natively in "
+        f"{t_enc:.3f} s, decrypt_cbc on the card {ms:.3f} ms ({len(corpus) / 1e3 / ms:.1f} "
+        f"MB/s, CUDA events, median of 5): equal to the corpus; allocated at its peak "
+        f"{peaks[chunk_bytes]} bytes over 16 MiB, {peaks[2 * chunk_bytes]} over 32 MiB")
+    return {"decrypt_32MiB_ms": ms, "peak_bytes_16MiB": peaks[chunk_bytes],
+            "peak_bytes_32MiB": peaks[2 * chunk_bytes]}
+
+
+def filter_checks(dev, card_label):
+    """The whole-array branch converters, the swaps and delta on the card,
+    over 3 MiB and 3 bytes (an unaligned tail) with branch opcodes planted
+    and an ip whose addresses wrap past 2^32: each equal to the same
+    function on the CPU, exactly. Then an ARM folder and a delta folder,
+    built by the writer's own header code, read back by SevenZipReader on
+    the card."""
+    from tpu7z_torch.containers.sevenzip import SevenZipReader
+    from tpu7z_torch.containers.sevenzip import format as F
+    from tpu7z_torch.containers.sevenzip import writer as W
+    from tpu7z_torch.models.filters import bcj, delta
+    from tpu7z_torch.ops.hashing import crc32_native
+
+    rng = np.random.default_rng(0xBC7)
+    n = (3 << 20) + 3
+    b = rng.integers(0, 256, n, dtype=np.uint8)
+    for start, step, byte, share in ((3, 4, 0xEB, 0.2), (0, 4, 0x94, 0.2), (3, 4, 0x94, 0.1),
+                                     (0, 4, 0x48, 0.2), (0, 4, 0x40, 0.2), (1, 2, 0xF0, 0.2)):
+        lane = b[start::step]
+        lane[rng.random(lane.size) < share] = byte
+    data = b.tobytes()
+    ip = 0xFFF00000
+    cases = {}
+    for name in ("arm", "arm64", "ppc", "sparc", "armt"):
+        enc, dec = bcj.FILTERS[name]
+        cases[f"{name}_encode"] = lambda d, f=enc: f(data, ip, device=d)
+        cases[f"{name}_decode"] = lambda d, f=dec: f(data, ip, device=d)
+    cases["swap2"] = lambda d: bcj.swap2(data, device=d)
+    cases["swap4"] = lambda d: bcj.swap4(data, device=d)
+    for dist in (1, 4, 256):
+        cases[f"delta{dist}_encode"] = lambda d, k=dist: delta.delta_encode(data, k, device=d)
+        cases[f"delta{dist}_decode"] = lambda d, k=dist: delta.delta_decode(data, k, device=d)
+    times = {}
+    for name, fn in cases.items():
+        t = time.perf_counter()
+        got = fn(dev)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        if got != fn("cpu") or len(got) != n:
+            raise AssertionError(f"filter {name} on the card differs from its CPU run")
+        if got == data:
+            raise AssertionError(f"filter {name} left the planted input as it was")
+    log(f"filters ({card_label}): {len(cases)} converters over {n} bytes at ip {ip:#x} on "
+        f"the card equal their CPU runs; host clock with the copies, slowest "
+        f"{max(times, key=times.get)} {max(times.values()):.3f} s")
+
+    files = {"arm.bin": data, "delta.bin": data[:1 << 20]}
+    packs = [bcj.bcj_arm_encode(data, device=dev),
+             delta.delta_encode(files["delta.bin"], 4, device=dev)]
+    folders = [{"coders": [(mid, props, 1, 1)], "bind": [], "packed_indices": [0],
+                "sizes": [len(files[name])], "crc": crc32_native(files[name])}
+               for name, mid, props in (("arm.bin", F.M_ARM, b""),
+                                        ("delta.bin", F.M_DELTA, bytes([3])))]
+    header = W._build_header(list(files), files, [], folders, packs, [1, 1],
+                             [len(v) for v in files.values()],
+                             [crc32_native(v) for v in files.values()])
+    arc = W._archive_bytes(header, packs)
+    t = time.perf_counter()
+    back = SevenZipReader(arc, device=dev).extract_all()
+    t_read = time.perf_counter() - t
+    if back != files:
+        raise AssertionError("the ARM and delta folders do not read back on the card")
+    log(f"an ARM folder and a delta folder read back on the card in {t_read:.3f} s: equal")
+    return {"bytes": n, "ip": ip, "seconds": times, "folders_read_s": t_read}
 
 
 def sort_inputs(dev, corpus_blocks, corpus_ns, P, M):
@@ -1319,6 +1582,13 @@ def main() -> int:
     sort_entry["launches_by_path"].update(lz4_accel=lz["lz4_accel"]["launches"],
                                           lzma_fast_parse=lz["lzma_fast_parse"]["launches"])
     sort_entry["lzma_path"] = {k: v for k, v in lz["sort"].items() if k != "max_abs_err"}
+    # 10. the .7z container on the card
+    t = time.time()
+    sz = sevenzip_phase(corpus, dev, S, f"{card_name}, {power_limit}", zstd["frame"])
+    log(f"phase 10 in {time.time() - t:.1f} s")
+    sort_entry["launches_by_path"].update(
+        sevenzip_zstd=sz["zstd_solid"]["sort_rows_launches"],
+        sevenzip_zstd_aes=sz["zstd_solid_aes"]["sort_rows_launches"])
 
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

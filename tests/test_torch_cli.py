@@ -131,13 +131,14 @@ def test_test_reports_a_corrupt_frame(workdir, want, capsys):
     (["a", "-tbzip2", "out.bz2", "input.bin"], "-tbzip2: the port writes only .lz4"),
     (["a", "-tlz4", "-m0=zstd", "out.lz4", "input.bin"],
      "-tlz4: the port writes only .lz4, .zst and .xz, each with its own codec"),
-    (["a", "-t7z", "out.7z", "input.bin"], "-t7z: the port writes only .lz4"),
+    (["a", "-t7z", "-m0=bzip2", "out.7z", "input.bin"],
+     "7z writer: method bzip2 is not ported to tpu7z_torch yet"),
     (["u", "out.lz4", "input.bin"], "command 'u' is not served by the port"),
-    (["a", "-tlz4", "-mdev", "-psecret", "out.lz4", "input.bin"],
-     "switch -psecret is not served by the port"),
+    (["a", "-tlz4", "-mdev", "-v10m", "out.lz4", "input.bin"],
+     "switch -v10m is not served by the port"),
     (["a", "-tgzip", "-mdev", "out.gz", "input.bin"], "-tgzip: the port writes only"),
-    (["l", "out.lz4"], "command 'l' is not served by the port"),
-    (["x", "input.bin"], "input.bin: the port reads .lz4, .zst and .xz only"),
+    (["l", "out.lz4"], "l: the port lists only .7z archives, not lz4"),
+    (["a", "-tzip", "out.zip", "input.bin"], "-tzip: the port writes only .lz4"),
 ])
 def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
     assert main(args, device="cpu") == 2
@@ -344,3 +345,186 @@ def test_corrupt_xz_exits_2(workdir, capsys):
         assert "ERROR: xz:" in capsys.readouterr().err
     assert not (workdir / "bad").exists()
 
+
+
+# --- the .7z verbs, each against tpu7z.cli ---
+
+def _run_both(tmp_path, monkeypatch, capsysbinary, prepare, args):
+    """As `_both`, and each run's standard output and last line of
+    standard error: [(exit code, stdout, last stderr line, files)] for
+    tpu7z's CLI, then the port's."""
+    runs = []
+    for name, run in (("ref", jmain), ("port", lambda a: main(a, device="cpu"))):
+        d = tmp_path / name
+        d.mkdir()
+        prepare(d)
+        monkeypatch.chdir(d)
+        capsysbinary.readouterr()
+        rc = run(list(args))
+        cap = capsysbinary.readouterr()
+        err = cap.err.decode().strip().splitlines()
+        files = {str(p.relative_to(d)): p.read_bytes() for p in sorted(d.rglob("*"))
+                 if p.is_file()}
+        runs.append((rc, cap.out, err[-1] if err else "", files))
+    return runs
+
+
+@pytest.fixture
+def fixed_iv(monkeypatch):
+    """Both writers draw their IVs from os.urandom(16)."""
+    monkeypatch.delenv("TPU7Z_DEVICE", raising=False)
+    monkeypatch.setattr(os, "urandom", lambda n: bytes(range(7, 7 + n)))
+
+
+def _inputs(d):
+    (d / "input.bin").write_bytes(_input()[:20000])
+    (d / "d" / "e").mkdir(parents=True)
+    (d / "d" / "e" / "ünï.txt").write_bytes(b"nested text " * 100)
+    (d / "d" / "empty").write_bytes(b"")
+    (d / "d" / "x.bin").write_bytes(_input()[30000:34000])
+
+
+@pytest.mark.parametrize("args", [
+    ["a", "-t7z", "o.7z", "input.bin"],
+    ["a", "o.7z", "input.bin", "d"],
+    ["a", "o.bin", "input.bin"],
+    ["a", "-t7z", "-psecret", "o.7z", "input.bin", "d"],
+    ["a", "-psecret", "-mhe", "o.7z", "d"],
+    ["a", "-t7z", "-m0=zstd", "-mx3", "o.7z", "input.bin", "d"],
+    ["a", "-t7z", "-m0=zstd:x9", "o.7z", "d"],
+    ["a", "-t7z", "-m0=lz4", "-mx0", "-md24", "-y", "-r", "o.7z", "d"],
+    ["a", "-t7z", "-m0=copy", "-mmt=p50", "o.7z", "d"],
+    ["a", "-t7z", "-m0=bcj2", "o.7z", "input.bin"],
+    ["a", "-t7z", "-mdev", "o.7z", "input.bin"],
+    ["a", "-t7z", "-so", "o.7z", "input.bin", "d"],
+    ["a", "-t7z", "-mhe", "o.7z", "input.bin"],
+    ["a", "-t7z", "-m0=lzma", "o.7z", "input.bin"],
+    ["a", "-t7z", "o.7z", "missing.bin"],
+], ids=["t7z", "by_name", "unknown_name", "password", "header_encrypted", "zstd_mx3",
+        "zstd_x9", "lz4_mx0", "copy_mmt", "bcj2", "mdev_ignored", "stdout",
+        "mhe_without_password", "unknown_method", "missing_input"])
+def test_add_7z_as_tpu7z(tmp_path, monkeypatch, capsysbinary, fixed_iv, args):
+    """`a` of a .7z: tpu7z's archive bytes, stdout and exit code, for its
+    types, methods, levels, passwords and inputs; errors as tpu7z's."""
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, _inputs, args)
+    assert rc == ref_rc
+    assert out == ref_out
+    assert port == ref
+    if rc:
+        assert rc == 2 and err == ref_err
+    else:
+        archive = out if "-so" in args else next(v for k, v in port.items()
+                                                 if k.startswith("o."))
+        assert archive[:6] == b"7z\xbc\xaf\x27\x1c"
+
+
+@pytest.fixture(scope="module")
+def archive_kinds():
+    """(files, {kind: tpu7z's archive of them}), written once: tpu7z's
+    AES encrypt runs at about 5 KB/s."""
+    from unittest import mock
+
+    from tpu7z.containers.sevenzip import writer as jw
+    rng = np.random.default_rng(5)
+    files = {"input.bin": _input()[:20000], "d/e/ünï.txt": b"nested text " * 100,
+             "d/x.bin": rng.integers(0, 256, 1500, np.uint8).tobytes(), "d/empty": b""}
+    with mock.patch("os.urandom", lambda n: bytes(range(n))):
+        return files, {
+        "lzma2": jw.write_archive(files),
+        "zstd_loose": jw.write_archive(files, method="zstd", solid=False),
+        "password": jw.write_archive(files, password="secret"),
+        "header_encrypted": jw.write_archive(files, method="lz4", password="secret",
+                                             encrypt_header=True),
+        }
+
+
+@pytest.mark.parametrize("verb", [
+    ["t"], ["x", "-oout"], ["e"], ["x", "-so"], ["l"], ["l", "-slt"], ["x", "-mmt1", "-oout"]],
+    ids=["t", "x", "e", "x_so", "l", "l_slt", "x_mmt1"])
+@pytest.mark.parametrize("kind", ["lzma2", "zstd_loose", "password", "header_encrypted"])
+def test_read_7z_as_tpu7z(tmp_path, monkeypatch, capsysbinary, archive_kinds, kind, verb):
+    """`t`, `x`/`e` (files, or -so) and `l` (-slt) of tpu7z's archives:
+    tpu7z's exit codes, stdout and extracted files, with the password and
+    without it (exit 2, tpu7z's message)."""
+    files, archives = archive_kinds
+    pw = ["-psecret"] if kind in ("password", "header_encrypted") else []
+    for extra in ([pw] if not pw else [pw, []]):
+        sub = tmp_path / f"pw{len(extra)}"
+        sub.mkdir()
+        (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+            sub, monkeypatch, capsysbinary,
+            lambda d: (d / "a.7z").write_bytes(archives[kind]),
+            [verb[0], *extra, "a.7z", *verb[1:]])
+        assert (rc, out, port) == (ref_rc, ref_out, ref)
+        if extra or not pw:
+            assert rc == 0
+            if verb[0] in ("x", "e") and "-so" not in verb:
+                where = "out/" if "-oout" in verb else ""
+                assert {k[len(where):]: v for k, v in port.items()
+                        if k.startswith(where) and k != "a.7z"} == files
+            if "-so" in verb:
+                assert out == b"".join(files.values())
+        elif verb[0] != "l" or kind == "header_encrypted":
+            assert rc == 2 and err == ref_err == \
+                "ERROR: 7z: archive is encrypted (no password)"
+
+
+@pytest.mark.parametrize("args", [["x", "input.bin"], ["t", "input.bin"],
+                                  ["l", "input.bin"], ["x", "-t7z", "input.bin"]])
+def test_bad_7z_exits_2_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
+    """A name that says nothing is a .7z: its bad signature is tpu7z's
+    error, after `l`'s first two lines."""
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, lambda d: (d / "input.bin").write_bytes(_input()),
+        args)
+    assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref)
+    assert rc == 2 and err == "ERROR: 7z: bad signature"
+
+
+def test_corrupt_7z_exits_2_as_tpu7z(tmp_path, monkeypatch, capsysbinary, archive_kinds):
+    archives = archive_kinds[1]
+    bad = bytearray(archives["lzma2"])
+    bad[40] ^= 0xFF
+    for verb in (["t"], ["x", "-oout"]):
+        sub = tmp_path / verb[0]
+        sub.mkdir()
+        (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+            sub, monkeypatch, capsysbinary, lambda d: (d / "a.7z").write_bytes(bytes(bad)),
+            [verb[0], "a.7z", *verb[1:]])
+        assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref)
+        assert rc == 2 and err.startswith("ERROR: ")
+
+
+@pytest.mark.parametrize("verb", [["x", "-oout"], ["e", "-oout"], ["x"]], ids=["x", "e", "x_here"])
+@pytest.mark.parametrize("kind", ["parent", "nested_parent", "absolute", "backslash"])
+def test_extract_refuses_names_outside_o(tmp_path, monkeypatch, capsys, kind, verb):
+    """A stored name that is absolute or climbs out of -o is refused with
+    exit 2 before any file is written: tpu7z writes it where it points
+    (a reference behaviour not reproduced, ROADMAP.md)."""
+    from tpu7z_torch.containers.sevenzip import write_archive
+    work = tmp_path / "work"
+    work.mkdir()
+    monkeypatch.chdir(work)
+    target = tmp_path / "outside.txt"
+    name = {"parent": "../outside.txt", "nested_parent": "out/../../outside.txt",
+            "absolute": str(target), "backslash": "..\\outside.txt"}[kind]
+    arc = write_archive({"fine.txt": b"kept in -o", name: b"escaped"}, method="copy",
+                        device="cpu")
+    (work / "a.7z").write_bytes(arc)
+    capsys.readouterr()
+    assert main([verb[0], "a.7z", *verb[1:]], device="cpu") == 2
+    assert "points outside" in capsys.readouterr().err
+    assert not target.exists()
+    assert sorted(p.name for p in work.rglob("*")) == ["a.7z"]
+
+
+def test_extract_drops_setuid_setgid_and_sticky_bits(tmp_path, monkeypatch):
+    """A stored unix mode is applied without its 0o7000 bits."""
+    from tpu7z_torch.cli import main as cli
+    monkeypatch.chdir(tmp_path)
+    opts = cli.Options()
+    opts.outdir = "out"
+    cli._write_files(opts, {"s": b"x", "d/t": b"y"}, {"s": (None, 0o6755), "d/t": (None, 0o1644)})
+    assert (tmp_path / "out" / "s").stat().st_mode & 0o7777 == 0o755
+    assert (tmp_path / "out" / "d" / "t").stat().st_mode & 0o7777 == 0o644

@@ -109,8 +109,9 @@ def test_corrupt_lz4_exits_2(workdir, capsys, kind, message, mt):
     (["a", "-tgzip", "out.gz", "input.bin"], "-tgzip: the port writes only .lz4"),
     (["a", "-m0=lzma", "out.xz", "input.bin"],
      "-txz: the port writes only .lz4, .zst and .xz, each with its own codec"),
-    (["a", "-tzstd", "-mmt=p50", "out.zst", "input.bin"], "-mmt=p50"),
-    (["a", "-t7z", "-mdev", "out.7z", "input.bin"], "-t7z: the port writes only .lz4"),
+    (["a", "-tzstd", "-i!*.bin", "out.zst", "input.bin"], "switch -i!*.bin is not served"),
+    (["a", "-t7z", "-mdev", "-m0=ppmd", "out.7z", "input.bin"],
+     "7z writer: method ppmd is not ported to tpu7z_torch yet"),
 ])
 def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
     assert main(args, device="cpu") == 2

@@ -1,16 +1,25 @@
-"""The port's command line: tpu7z's CLI for .lz4, .zst and .xz.
+"""The port's command line: tpu7z's CLI for .7z, .lz4, .zst and .xz.
 
+    python -m tpu7z_torch.cli a [-t7z] [-m0={method}] [-mx{N}] [-p{password}] [-mhe] archive.7z inputs...
     python -m tpu7z_torch.cli a -tlz4 [-mdev] archive.lz4 input
     python -m tpu7z_torch.cli a -tzstd [-mx{N}] [-mmt{N}] [-m0=zstd:wlog=N] archive.zst input
     python -m tpu7z_torch.cli a -txz archive.xz input
-    python -m tpu7z_torch.cli t archive.{lz4,zst,xz} [-mmt{N}]
-    python -m tpu7z_torch.cli x archive.{lz4,zst,xz} [-o{dir}] [-mmt{N}]
+    python -m tpu7z_torch.cli t archive [-p{password}] [-mmt{N}]
+    python -m tpu7z_torch.cli x archive [-o{dir}] [-p{password}] [-so] [-mmt{N}]
+    python -m tpu7z_torch.cli l archive.7z [-slt] [-p{password}]
 
-`a` compresses one input into one stream: a file, a directory that
-holds one file (walked as tpu7z walks it; more than one file is refused
-with tpu7z's message), or standard input with -si. The archive is written
-to a temporary file and renamed over its name, or to standard output with
--so. The type comes from -t, else from the archive's extension.
+The archive's type comes from -t, else from its name (tpu7z's table of
+extensions), else, for `t`, `x` and `l`, from its first bytes; a name
+that says nothing is a .7z, as in tpu7z. `a` reads its inputs as tpu7z's
+`cmd_add` does: each input file under its base name, each file under an
+input directory under its path relative to the working directory, or
+standard input with -si. The archive is written to a temporary file and
+renamed over its name, or to standard output with -so.
+  .7z (containers/sevenzip): every input, one solid folder; -m0= copy,
+      lzma2 (the default), zstd, lz4 or bcj2; -mx{N} (default 5, as is
+      -mx0); -p{password} encrypts each folder with AES-256, -mhe the
+      header too; -md{size}, -y and -r are read and ignored, as there.
+      zstd folders run the tensor encoder, whose parse runs on the card;
   -tlz4 -mdev (also -m0=lz4:dev, or TPU7Z_DEVICE=1 in the environment):
       the device block encoder (parallel/sharded.py:
       shard_compress_lz4_device) on the CUDA card;
@@ -22,18 +31,22 @@ to a temporary file and renamed over its name, or to standard output with
       runs on the card (models/zstd/compressor.py); else the host encoder;
   -txz: one block of the host library's LZMA2, a CRC64 check
       (containers/xz.py); the level is ignored, as tpu7z ignores it.
+The single-stream types take one input; more are refused as in tpu7z.
 The device flag (-mdev, dev in -m0, TPU7Z_DEVICE) selects lz4's device
-coder; with zstd and xz, which have none, it is ignored, as in tpu7z,
-with a note on stderr.
-`t` tests and `x`/`e` extract .lz4, .zst and .xz archives, known by -t,
-their extension or their magic: frames and blocks decode in parallel
-(parallel/decode.py), serially at -mmt1. `x` names its output as tpu7z
-does: by default the archive's name with each known extension stripped
-in turn, at -mmt1 with one stripped or `.out` added; where that name is
-the archive itself, `.out` is added (tpu7z would overwrite its input).
+coder; with the other types, which have none, it is ignored, as in
+tpu7z, with a note on stderr. -mmt takes tpu7z's grammar
+(utils/methodprops.py: parse_mt).
+`t` tests and `x`/`e` extract: a .7z's files (with their unix modes, as
+tpu7z sets them) under -o{dir}, or every file's bytes to standard output
+with -so; a .lz4, .zst or .xz stream's frames and blocks in parallel
+(parallel/decode.py), serially at -mmt1. `x` names a stream's output as
+tpu7z does: by default the archive's name with each known extension
+stripped in turn, at -mmt1 with one stripped or `.out` added; where that
+name is the archive itself, `.out` is added (tpu7z would overwrite its
+input). `l` lists a .7z's files, and with -slt their technical lines.
 The rest of tpu7z's CLI (other verbs, types, codecs and switches) is
 `python -m tpu7z.cli`'s: asking the port for it exits with 2 and says
-so. The bytes written are tpu7z's.
+so. The bytes written are tpu7z's. The .7z verbs run on the card.
 """
 
 from __future__ import annotations
@@ -43,19 +56,42 @@ import sys
 from dataclasses import dataclass, field
 
 from ..containers import xz
+from ..containers.sevenzip import SevenZipReader, write_archive
 from ..models.lz4 import frame
+from ..models.registry import get_codec
 from ..models.zstd import frame as zframe
 from ..parallel import decode
 from ..parallel.sharded import shard_compress_lz4_device
 from ..utils.errors import TpuzError
+from ..utils.methodprops import parse_method_spec, parse_mt, parse_size
 
 ELSEWHERE = "use python -m tpu7z.cli"
-LZ4_MAGICS = (frame.MAGIC.to_bytes(4, "little"),
-              frame.MAGIC_SKIPPABLE_MIN.to_bytes(4, "little"))
-ZSTD_MAGIC = zframe.MAGIC.to_bytes(4, "little")
-EXTENSIONS = {".lz4": "lz4", ".zst": "zstd", ".xz": "xz"}
-TYPES = {"lz4": "lz4", "zstd": "zstd", "zst": "zstd", "xz": "xz"}
-SERVED = ("lz4", "zstd", "xz")
+# tpu7z's type names by extension (tpu7z/cli/main.py:25-43)
+EXT_TYPES = {
+    ".7z": "7z", ".zst": "zstd", ".lz4": "lz4", ".xz": "xz",
+    ".bz2": "bzip2", ".gz": "gzip", ".tar": "tar", ".br": "brotli",
+    ".lz5": "lz5", ".liz": "lizard", ".lizard": "lizard", ".zip": "zip",
+    ".squashfs": "squashfs", ".sqfs": "squashfs", ".cpio": "cpio",
+    ".a": "ar", ".ar": "ar", ".deb": "ar", ".lib": "ar", ".rpm": "rpm",
+    ".iso": "iso", ".Z": "z", ".taz": "z", ".xar": "xar",
+    ".pkg": "xar", ".lzh": "lzh", ".lha": "lzh", ".lz": "lzip",
+    ".tlz": "lzip", ".wim": "wim", ".swm": "wim", ".cab": "cab",
+    ".ext2": "ext", ".ext3": "ext", ".ext4": "ext",
+    ".vhd": "vhd", ".swf": "swf", ".flv": "flv", ".hex": "ihex",
+    ".ihex": "ihex", ".b64": "base64", ".exe": "pe", ".dll": "pe",
+    ".sys": "pe", ".so": "elf", ".dylib": "macho", ".arj": "arj",
+    ".fat": "fat", ".ntfs": "ntfs", ".udf": "udf", ".chm": "chm",
+    ".qcow2": "qcow", ".qcow": "qcow", ".vdi": "vdi", ".vmdk": "vmdk",
+    ".dmg": "dmg", ".hfs": "hfs",
+    ".vhdx": "vhdx", ".rar": "rar", ".apfs": "apfs",
+}
+# where the content decides before the extension: an .exe may hold a 7z
+AMBIGUOUS_EXTS = {".exe": "pe", ".dll": "pe", ".sys": "pe"}
+# tpu7z's magic tests of the types the port serves (tpu7z/cli/main.py:64-71)
+MAGICS = ((b"7z\xbc\xaf\x27\x1c", "7z"), (zframe.MAGIC.to_bytes(4, "little"), "zstd"),
+          (frame.MAGIC.to_bytes(4, "little"), "lz4"), (xz.MAGIC, "xz"))
+SERVED = ("7z", "lz4", "zstd", "xz")
+TYPES = {"zst": "zstd"}
 # the extensions tpu7z's extract strips from an output name: each in turn
 # by default (tpu7z/cli/main.py:524), the first that matches at -mmt1
 # (:553), where it adds `.out` if none does
@@ -63,6 +99,7 @@ STRIP_ALL = (".zst", ".lz4", ".xz", ".bz2", ".gz", ".Z", ".lz", ".br")
 STRIP_ONE = (".zst", ".lz4", ".xz", ".bz2", ".gz")
 MAX_THREADS = 8          # -mmt's ceiling, as tpu7z's parse_mt has it
 DEFAULT_LEVEL = 5
+FILETIME_EPOCH = 11644473600  # seconds between 1601 and 1970
 
 
 class UsageError(Exception):
@@ -76,70 +113,49 @@ class Options:
     props: dict = field(default_factory=dict)
     level: int | None = None
     threads: int | None = None
+    password: str | None = None
+    encrypt_header: bool = False
     # -mdev, also on when TPU7Z_DEVICE is set to anything but 0
     device: bool = field(default_factory=lambda: os.environ.get(
         "TPU7Z_DEVICE", "") not in ("", "0"))
     stdin: bool = False
     stdout: bool = False
+    slt: bool = False
     outdir: str = "."
 
 
-def _method_spec(spec: str):
-    """`zstd:x19:wlog=21:dev` -> ("zstd", {"x": 19, "wlog": 21, "dev":
-    True}), as tpu7z's parse_method_spec reads it: `k=v`, or a name with
-    a number after it, or a bare flag."""
-    name, *parts = spec.split(":")
-    props = {}
-    for p in parts:
-        if "=" in p:
-            k, v = p.split("=", 1)
-            props[k.lower()] = int(v) if v.lstrip("-").isdigit() else v
-            continue
-        i = 0
-        while i < len(p) and not p[i].isdigit():
-            i += 1
-        if i in (0, len(p)):
-            if p:
-                props[p.lower()] = True
-        else:
-            props[p[:i].lower()] = int(p[i:])
-    return name.lower(), props
-
-
-def _threads(spec: str) -> int:
-    """-mmt's value: a count (at most 8), on (8) or off (0)."""
-    s = spec.lstrip("=").lower()
-    if s in ("", "on"):
-        return MAX_THREADS
-    if s == "off":
-        return 0
-    if not s.isdigit():
-        raise UsageError(f"-mmt{spec}: the port takes -mmt with a count, on or off; "
-                         f"{ELSEWHERE}")
-    return min(max(int(s), 1), MAX_THREADS)
-
-
 def _parse(args) -> tuple[Options, list[str]]:
+    """tpu7z's switches that the port serves (tpu7z/cli/main.py:179-236)."""
     opts, rest = Options(), []
     for a in args:
         if a.startswith("-t"):
             opts.type = a[2:].lower()
         elif a.startswith("-m0="):
-            opts.method, opts.props = _method_spec(a[4:])
+            opts.method, opts.props = parse_method_spec(a[4:])
             if "x" in opts.props:
                 opts.level = int(opts.props.pop("x"))
         elif a.startswith("-mx"):
             opts.level = int(a[3:].lstrip("="))
-        elif a.startswith("-mmt"):
-            opts.threads = _threads(a[4:])
+        elif a.startswith("-md") and len(a) > 3 and a[3].isdigit():
+            parse_size(a[3:])   # read and ignored, as tpu7z's `a` ignores it
+        elif a.startswith("-mhe"):
+            opts.encrypt_header = a[4:] in ("", "=on", "on")
         elif a.startswith("-mdev"):
             opts.device = a[5:].lstrip("=") not in ("off", "0", "-")
+        elif a.startswith("-mmt"):
+            opts.threads = parse_mt(a[4:].lstrip("=") or "on", MAX_THREADS)
+        elif a.startswith("-p"):
+            opts.password = a[2:]
+        elif a.startswith("-o"):
+            opts.outdir = a[2:]
         elif a == "-si":
             opts.stdin = True
         elif a == "-so":
             opts.stdout = True
-        elif a.startswith("-o"):
-            opts.outdir = a[2:]
+        elif a == "-slt":
+            opts.slt = True
+        elif a in ("-y", "-r", "-r0"):
+            pass
         elif a.startswith("-"):
             raise UsageError(f"switch {a} is not served by the port; {ELSEWHERE}")
         else:
@@ -147,22 +163,34 @@ def _parse(args) -> tuple[Options, list[str]]:
     return opts, rest
 
 
-def _by_extension(path: str):
-    for ext, t in EXTENSIONS.items():
-        if path.endswith(ext):
-            return t
-    return None
+def _sniff_type(path: str, data: bytes | None = None) -> str:
+    """The archive type as tpu7z's `_sniff_type` gives it: the extension,
+    else the magic of a type the port serves, else a .7z; an .exe, .dll
+    or .sys is a .7z only if it holds a 7z signature after its stub."""
+    fallback = next((t for ext, t in AMBIGUOUS_EXTS.items() if path.endswith(ext)), None)
+    if fallback is None:
+        for ext, t in EXT_TYPES.items():
+            if path.endswith(ext):
+                return t
+    if data:
+        for magic, t in MAGICS:
+            if data.startswith(magic):
+                return t
+    if fallback is not None:
+        if data and data[:2] == b"MZ" and data.find(b"7z\xbc\xaf\x27\x1c", 0, 1 << 22) > 0:
+            return "7z"
+        return fallback
+    return "7z"
 
 
-def _read_input(opts: Options, inputs, atype: str) -> bytes:
-    """The one stream to compress, as tpu7z's `cmd_add` collects it: each
-    input file under its base name, each file under an input directory
-    under its path relative to the working directory, every one read;
-    none, or more than one, is refused as there."""
+def _read_input(opts: Options, inputs) -> dict[str, bytes]:
+    """{name: bytes} as tpu7z's `cmd_add` collects them: each input file
+    under its base name, each file under an input directory under its
+    path relative to the working directory; none is refused as there."""
     if opts.stdin:
         if inputs:
             raise UsageError("a -si: no input files with -si")
-        return sys.stdin.buffer.read()
+        return {"stdin": sys.stdin.buffer.read()}
     files = {}
     for path in inputs:
         if os.path.isdir(path):
@@ -176,6 +204,10 @@ def _read_input(opts: Options, inputs, atype: str) -> bytes:
                 files[os.path.basename(path)] = f.read()
     if not files:
         raise TpuzError("a: no input files")
+    return files
+
+
+def _one_stream(files: dict, atype: str) -> bytes:
     if len(files) > 1:
         raise TpuzError(f"-t{atype}: single-stream format, got {len(files)} inputs")
     return next(iter(files.values()))
@@ -185,33 +217,36 @@ def _add(opts: Options, args, device) -> int:
     if not args:
         raise UsageError("a: missing archive name")
     archive, inputs = args[0], args[1:]
-    atype = TYPES.get(opts.type, opts.type) if opts.type else _by_extension(archive)
+    atype = TYPES.get(opts.type, opts.type) if opts.type else _sniff_type(archive)
     method = TYPES.get(opts.method, opts.method) if opts.method else atype
     # tpu7z reads the device flag for lz4 only: lz4's device coder takes
-    # the stream whatever -m0 names; zstd and xz have no device coder
+    # the stream whatever -m0 names; the other types have no device coder
     asked = opts.device or bool(opts.props.get("dev"))
     dev = asked and atype == "lz4"
-    if not dev and (atype not in SERVED or method != atype):
-        raise UsageError(f"-t{opts.type or atype or '?'}: the port writes only .lz4, .zst "
-                         f"and .xz, each with its own codec; {ELSEWHERE}")
+    if not dev and atype != "7z" and (atype not in SERVED or method != atype):
+        raise UsageError(f"-t{opts.type or atype}: the port writes only .lz4, .zst and "
+                         f".xz, each with its own codec, and .7z; {ELSEWHERE}")
     if asked and not dev:
-        print(f"note: -mdev: {atype} has no device coder; the host coder writes it",
+        print(f"note: -mdev: {atype} has no device coder; the flag is ignored, as in tpu7z",
               file=sys.stderr)
-    data = _read_input(opts, inputs, opts.type or atype)
-    if dev:
-        out = shard_compress_lz4_device(data, device=device)
-    elif atype == "lz4":
-        out = frame.compress_frame(data)
-    elif atype == "xz":
-        out = xz.compress(data)
+    files = _read_input(opts, inputs)
+    if atype == "7z":
+        out = write_archive(files, method=opts.method or "lzma2",
+                            level=opts.level or DEFAULT_LEVEL, password=opts.password,
+                            encrypt_header=opts.encrypt_header, device=device)
     else:
-        kw = {}
-        if "wlog" in opts.props:
-            kw["window_log"] = int(opts.props["wlog"])
-            kw["device"] = device
-        if opts.threads:
-            kw["threads"] = opts.threads
-        out = zframe.compress(data, level=min(opts.level or DEFAULT_LEVEL, 22), **kw)
+        data = _one_stream(files, opts.type or atype)
+        if dev:
+            out = shard_compress_lz4_device(data, device=device)
+        else:
+            # through the registry, as tpu7z's: lz4 and xz take no options
+            kw = {}
+            if "wlog" in opts.props:
+                kw["window_log"] = int(opts.props["wlog"])
+                kw["device"] = device
+            if opts.threads and atype == "zstd":
+                kw["threads"] = opts.threads
+            out = get_codec(atype).compress(data, level=opts.level or DEFAULT_LEVEL, **kw)
     if opts.stdout:
         sys.stdout.buffer.write(out)
         return 0
@@ -241,7 +276,57 @@ def _output_name(opts: Options, path: str) -> str:
     return name
 
 
-def _decode(opts: Options, args, test_only: bool) -> int:
+def _metadata(rd: SevenZipReader) -> dict:
+    """name -> (mtime in unix seconds or None, posix mode or None), as
+    tpu7z's `_file_metadata` reads them (tpu7z/cli/main.py:620-634)."""
+    meta = {}
+    for fe in rd.files:
+        mtime = fe.mtime / 10_000_000 - FILETIME_EPOCH if fe.mtime else None
+        mode = (fe.attrib >> 16) & 0xFFFF if fe.attrib is not None and fe.attrib & 0x8000 \
+            else None
+        meta[fe.name] = (mtime, mode)
+    return meta
+
+
+def _destination(outdir: str, name: str) -> str:
+    """name's path under outdir. A name that is absolute, has a `..`
+    part or resolves outside outdir is refused: tpu7z writes it where it
+    points (ROADMAP.md §3)."""
+    rel = name.replace("\\", "/")
+    dst = os.path.join(outdir, rel)
+    root = os.path.realpath(outdir)
+    if os.path.isabs(rel) or ".." in rel.split("/") or \
+            os.path.commonpath([root, os.path.realpath(dst)]) != root:
+        raise TpuzError(f"x: {name!r}: the name points outside {outdir!r}; refused")
+    return dst
+
+
+def _write_files(opts: Options, files: dict, meta: dict):
+    """Each file under -o, with its mode (without the setuid, setgid and
+    sticky bits) and mtime where the archive holds them, as tpu7z's
+    `cmd_extract` writes them (:593-617). Every name is checked before
+    the first file is written."""
+    dsts = [_destination(opts.outdir, name) for name in files]
+    os.makedirs(opts.outdir, exist_ok=True)
+    for dst, (name, content) in zip(dsts, files.items()):
+        os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
+        with open(dst, "wb") as f:
+            f.write(content)
+        mtime, mode = meta.get(name, (None, None))
+        if mode is not None:
+            try:
+                os.chmod(dst, mode & 0o777)
+            except OSError:
+                pass
+        if mtime is not None:
+            try:
+                os.utime(dst, (mtime, mtime))
+            except OSError:
+                pass
+        print(f"extracted {name} ({len(content)} bytes)")
+
+
+def _decode(opts: Options, args, test_only: bool, device) -> int:
     if not args and not opts.stdin:
         raise UsageError("missing archive")
     path = None if opts.stdin else args[0]
@@ -250,40 +335,76 @@ def _decode(opts: Options, args, test_only: bool) -> int:
     else:
         with open(path, "rb") as f:
             data = f.read()
-    atype = TYPES.get(opts.type, opts.type) if opts.type else (
-        _by_extension(path or "") or ("zstd" if data[:4] == ZSTD_MAGIC else
-                                      "lz4" if data[:4] in LZ4_MAGICS else
-                                      "xz" if data[:6] == xz.MAGIC else None))
+    atype = TYPES.get(opts.type, opts.type) if opts.type else _sniff_type(path or "", data)
     if atype not in SERVED:
-        raise UsageError(f"{path or 'stdin'}: the port reads .lz4, .zst and .xz only; "
+        raise UsageError(f"{path or 'stdin'}: the port reads .7z, .lz4, .zst and .xz only; "
                          f"{ELSEWHERE}")
+    meta = {}
+    if atype == "7z":
+        rd = SevenZipReader(data, password=opts.password, device=device)
+        files = rd.extract_all()
+        meta = _metadata(rd)
     # frames and blocks decode in parallel; -mmt1 forces the serial path
-    if atype == "xz":
-        content = xz.decompress(data)
+    elif atype == "xz" or opts.threads == 1:
+        files = {None: get_codec(atype).decompress(data)}
     elif atype == "zstd":
-        content = (zframe.decompress(data) if opts.threads == 1
-                   else decode.decompress_zstd(data, threads=opts.threads))
+        files = {None: decode.decompress_zstd(data, threads=opts.threads)}
     else:
-        content = (frame.decompress(data) if opts.threads == 1
-                   else decode.decompress_lz4(data, threads=opts.threads))
+        files = {None: decode.decompress_lz4(data, threads=opts.threads)}
     if test_only:
-        print(f"type={atype} files=1")
+        print(f"type={atype} files={len(files)}")
         print("Everything is Ok")
         return 0
     if opts.stdout:
-        sys.stdout.buffer.write(content)
+        for content in files.values():
+            sys.stdout.buffer.write(content)
         return 0
-    name = _output_name(opts, path) if path else "stdin"
-    os.makedirs(opts.outdir, exist_ok=True)
-    with open(os.path.join(opts.outdir, name), "wb") as f:
-        f.write(content)
-    print(f"extracted {name} ({len(content)} bytes)")
+    if atype != "7z":
+        files = {_output_name(opts, path) if path else "stdin": files[None]}
+    _write_files(opts, files, meta)
+    return 0
+
+
+def _list(opts: Options, args, device) -> int:
+    """`l` of a .7z, as tpu7z's `cmd_list` (tpu7z/cli/main.py:637-665)."""
+    if not args:
+        raise UsageError("l: missing archive")
+    path = args[0]
+
+    def served(atype):
+        if atype != "7z":
+            raise UsageError(f"l: the port lists only .7z archives, not {atype}; {ELSEWHERE}")
+        return atype
+
+    # a name that says another type is refused before it is read
+    served(opts.type or _sniff_type(path))
+    with open(path, "rb") as f:
+        data = f.read()
+    atype = served(opts.type or _sniff_type(path, data))
+    print(f"Listing archive: {path}")
+    print(f"Type = {atype}")
+    rd = SevenZipReader(data, password=opts.password, device=device)
+    if opts.slt:
+        print("----------")
+        for fe in rd.files:
+            print(f"Path = {fe.name}")
+            print(f"Size = {fe.size}")
+            if fe.crc is not None:
+                print(f"CRC = {fe.crc:08X}")
+            print(f"Folder = {'-' if not fe.has_stream else '+'}")
+            print()
+        return 0
+    print(f"{'Size':>10}  {'CRC':>8}  Name")
+    for fe in rd.files:
+        crc = f"{fe.crc:08x}" if fe.crc is not None else "-"
+        print(f"{fe.size:>10}  {crc:>8}  {fe.name}")
     return 0
 
 
 def main(argv=None, *, device=None) -> int:
-    """Run one command; returns the exit code. The device encoders run on
-    the CUDA card unless `device` names another (the tests name the CPU)."""
+    """Run one command; returns the exit code. The device encoders and the
+    .7z verbs run on the CUDA card unless `device` names another (the
+    tests name the CPU)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(__doc__)
@@ -294,9 +415,11 @@ def main(argv=None, *, device=None) -> int:
         if cmd == "a":
             return _add(opts, rest, device)
         if cmd in ("x", "e"):
-            return _decode(opts, rest, test_only=False)
+            return _decode(opts, rest, False, device)
         if cmd == "t":
-            return _decode(opts, rest, test_only=True)
+            return _decode(opts, rest, True, device)
+        if cmd == "l":
+            return _list(opts, rest, device)
         raise UsageError(f"command {cmd!r} is not served by the port; {ELSEWHERE}")
     except (UsageError, TpuzError, OSError) as e:
         print(f"ERROR: {e}", file=sys.stderr)

@@ -1,0 +1,118 @@
+"""Codec registry, a port of tpu7z/models/registry.py: the
+RegisterCodec/ICompressCoder analog (CPP/7zip/Common/RegisterCodec.h:22-104,
+CPP/7zip/ICoder.h).
+
+Maps method names to stream codecs, each a (compress, decompress) pair
+over whole byte streams, with tpu7z's name, 7z method ID and levels. The
+port registers the codecs it has; `get_codec` of another of tpu7z's
+names raises UnsupportedError and names tpu7z's CLI (ROADMAP.md lists
+them, to be registered as their codecs are ported).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from ..containers.sevenzip import format as F
+from ..utils.errors import UnsupportedError
+
+# tpu7z's codecs that the port has not ported yet
+UNPORTED = tuple(name for name, (_, _, codec) in F.UNPORTED.items() if codec)
+
+
+@dataclass(frozen=True)
+class CodecInfo:
+    name: str
+    method_id: int
+    compress: Callable
+    decompress: Callable
+    levels: tuple  # (min, max)
+
+
+def _lz4_c(data, level=1, **kw):
+    from .lz4 import frame
+    return frame.compress_frame(data)
+
+
+def _lz4_d(data, **kw):
+    from .lz4 import frame
+    return frame.decompress(data)
+
+
+def _zstd_c(data, level=3, **kw):
+    from .zstd import frame
+    return frame.compress(data, level=min(level, 22), **kw)
+
+
+def _zstd_d(data, **kw):
+    from .zstd import frame
+    return frame.decompress(data)
+
+
+def _lzma2_c(data, level=5, **kw):
+    from .lzma import lzma2
+    return lzma2.compress(data, level=level)
+
+
+def _lzma2_d(data, out_size=None, **kw):
+    from .lzma import lzma2
+    return lzma2.decompress(data, out_size)
+
+
+def _xz_c(data, level=5, **kw):
+    from ..containers import xz
+    return xz.compress(data)
+
+
+def _xz_d(data, **kw):
+    from ..containers import xz
+    return xz.decompress(data)
+
+
+def _copy(data, **kw):
+    return data
+
+
+CODECS: dict[str, CodecInfo] = {}
+
+
+def _traced(name: str, op: str, fn: Callable) -> Callable:
+    """Wrap a codec entry point in a trace span (utils/trace.py): one hook
+    for every codec, no cost while no trace callback is attached."""
+    def wrapped(data, *a, **kw):
+        from ..utils import trace as _trace
+        if not _trace.enabled():
+            return fn(data, *a, **kw)
+        with _trace.span(f"{name}.{op}", size=len(data), level=kw.get("level")):
+            return fn(data, *a, **kw)
+    wrapped.__name__ = f"{name}_{op}"
+    wrapped.__wrapped__ = fn
+    return wrapped
+
+
+def _register(name, mid, c, d, levels=(1, 9), traced=True):
+    """traced=False for a codec whose own entry points open its spans."""
+    if traced:
+        c, d = _traced(name, "compress", c), _traced(name, "decompress", d)
+    CODECS[name] = CodecInfo(name, mid, c, d, levels)
+
+
+_register("copy", 0x00, _copy, _copy, (0, 0))
+_register("lz4", 0x4F71104, _lz4_c, _lz4_d, (1, 12))
+# models/zstd/frame.py opens the zstd.compress and zstd.decompress spans
+_register("zstd", 0x4F71101, _zstd_c, _zstd_d, (1, 22), traced=False)
+_register("lzma2", 0x21, _lzma2_c, _lzma2_d, (1, 9))
+# xz is a container format, not a 7z coder: method_id 0 means it is not
+# addressable from a 7z folder, as in tpu7z
+_register("xz", 0, _xz_c, _xz_d, (1, 9))
+
+
+def get_codec(name: str) -> CodecInfo:
+    key = name.lower()
+    if key in CODECS:
+        return CODECS[key]
+    if key in UNPORTED:
+        raise UnsupportedError(f"codec {name!r} is not ported to tpu7z_torch yet; "
+                               f"{F.ELSEWHERE}")
+    raise UnsupportedError(f"unknown codec {name!r}; available: {sorted(CODECS)}")
