@@ -106,7 +106,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      (equal), the native encrypt against its Python twin on 64 KiB, and
      the CLI's `a -t7z -m0=zstd -p -mhe`, `t` and `x`, and every tensor
      branch filter and delta on the card against the CPU, with an ARM and
-     a delta folder read back; every archive read back on the card.
+     a delta folder read back; every archive read back on the card;
+ 11. DEFLATE, gzip, .zip, .tar and bzip2 on the card: `sort_rows` at this
+     slice's shapes against its plain version (deflate's rows, 256 x
+     131069 hashes at hashlog 15 with a position payload, and a short last
+     row; a bzip2 doubling pass of 900004 keys below 2**20; the 8-bit
+     occurrence sort), timed; deflate's parse and stream of the first 2
+     MiB on the card equal to its CPU run; the corpus as one .gz on the
+     card (one row sort counted, spans `deflate.parse`, `deflate.header`,
+     `deflate.pack`), read back by zlib; the port's `gzip_decompress` of
+     the first 4 MiB's .gz (cut: the host inflate); the corpus as a
+     deflate .zip of eight 4 MiB files read back by zipfile, two of them
+     by the port's `read_zip` (cut: the host inflate); a .zip of each
+     method the port writes; a .tar of the eight files both ways with
+     tarfile; bzip2 of the first 4 MiB at level 9 (cut: the host RLE1,
+     MTF and Huffman coding), read back by bz2 and by the port (the
+     inverse BWT on the card), the first block's BWT equal to its CPU run,
+     both ways by span; deflate and bzip2 .7z folders of 2 MiB; the CLI's
+     `a`, `t`, `x` (and `l`) of a .zip, .tar, .gz and .bz2 of 2 MiB.
 The timing helpers are tpu7z_torch/utils/timing.py's, shared with
 bench_torch.py. The line before the last is the per-kernel JSON; the last
 line is the device JSON. Imports nothing of JAX or tpu7z.
@@ -140,6 +157,7 @@ REPLACES = {
     "sort_rows": "tpu7z/ops/sort_pallas.py:76",
 }
 ODD = 2654435761
+TEXT = 696156                 # the corpus's first byte past its sparse chunk
 
 
 def log(msg):
@@ -836,6 +854,288 @@ def sevenzip_phase(corpus, dev, S, card_label, zstd_frame):
 
     # (g) the branch converters and delta on the card
     out["filters"] = filter_checks(dev, card_label)
+    return out
+
+
+def sort_shape(S, key, payloads, bb, what, card_label, time_it=True):
+    """`sort_rows` on (key, *payloads) against its plain version, exactly;
+    with `time_it`, its time through the wrapper and as its launches alone,
+    the plain version's, `torch.sort`'s (int64, stable) and the bound (each
+    operand read once and written once at 3.35 TB/s)."""
+    from tpu7z_torch.utils.timing import timed, timed_launches
+
+    got = S.sort_rows(key, *payloads, begin_bit=bb)
+    want = S.sort_rows_ref(key, *payloads, begin_bit=bb)
+    err = max_abs_err([bits64(g) for g in got], [bits64(w) for w in want])
+    if err:
+        raise AssertionError(f"sort_rows differs from its plain version on {what}: "
+                             f"max abs err {err}")
+    out = {"shape": list(key.shape), "begin_bit": bb, "payloads": len(payloads),
+           "max_abs_err": err}
+    if not time_it:
+        log(f"sort_rows on {what} {tuple(key.shape)}, begin_bit {bb}: equal to its plain "
+            f"version")
+        return out
+    outs, scratch = S.buffers(key, payloads, bb)
+    k64 = key.to(torch.int64) & 0xFFFFFFFF
+    out.update(
+        ms=timed(lambda: S.sort_rows(key, *payloads, begin_bit=bb)),
+        kernel_ms=timed_launches(lambda: S._launch(key, payloads, outs, scratch, bb)),
+        plain_ms=timed(lambda: S.sort_rows_ref(key, *payloads, begin_bit=bb)),
+        library_ms=timed(lambda: torch.sort(k64, dim=1, stable=True)),
+        bound_ms=2 * (1 + len(payloads)) * key.numel() * 4 / HBM_BYTES_PER_S * 1e3)
+    log(f"sort_rows on {what} {tuple(key.shape)}, begin_bit {bb}: equal to its plain version; "
+        f"{out['ms']:.3f} ms through the wrapper, launches alone {out['kernel_ms']:.3f} ms, "
+        f"bound {out['bound_ms']:.3f} ms; plain {out['plain_ms']:.3f} ms, torch.sort (int64, "
+        f"stable) {out['library_ms']:.3f} ms ({card_label})")
+    return out
+
+
+def cli_run(args, device):
+    """(exit code, stdout) of the port's CLI run in this process on `device`."""
+    import contextlib
+    import io
+
+    from tpu7z_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(args, device=device)
+    return rc, buf.getvalue()
+
+
+def deflate_bzip2_phase(corpus, dev, S, M, card_label):
+    """Phase 11, DEFLATE, gzip, .zip, .tar and bzip2 on the card: (a)
+    `sort_rows` at this slice's shapes against its plain version; (b)
+    deflate's parse and stream on the card against its CPU run; (c) the
+    corpus as one .gz (the full-size path), read by zlib; (d) the port's
+    gzip_decompress; (e) the corpus as a deflate .zip of eight 4 MiB files,
+    read by zipfile; (f) the port's read_zip; (g) a .zip a method; (h) a
+    .tar of the eight files, both ways with tarfile; (i) bzip2 at level 9,
+    read by bz2 and by the port (inverse BWT on the card), the first
+    block's BWT against its CPU run, and a run across a block cut; (j)
+    deflate and bzip2 .7z folders; (k) the CLI's a, t, x and l. Returns
+    the numbers for the log and the kernels line."""
+    import bz2
+    import io
+    import tarfile
+    import zipfile
+    import zlib
+
+    from tpu7z_torch.containers import tar as TAR
+    from tpu7z_torch.containers import zip as ZIP
+    from tpu7z_torch.containers.sevenzip import SevenZipReader, write_archive
+    from tpu7z_torch.models import bzip2 as BZ
+    from tpu7z_torch.models import deflate as DF
+    from tpu7z_torch.models.bzip2 import bwt as BWT
+    from tpu7z_torch.models.bzip2 import codec as BZC
+    from tpu7z_torch.models.deflate import codec as DFC
+    from tpu7z_torch.ops import _build
+    from tpu7z_torch.ops import hash_chain as HC
+
+    mib = 1 << 20
+    mb = len(corpus) / 1e6
+    out = {"sort": {}}
+
+    # (a) sort_rows at this slice's shapes: deflate's rows (every 128 KiB
+    # block of the corpus a row of hashes at hashlog 15, key h << 16, a
+    # position payload) and a short last row; a bzip2 doubling pass (900004
+    # keys below 2**20 with duplicates, key << 12) and the 8-bit
+    # occurrence sort (key << 24)
+    rng = np.random.default_rng(13)
+    s_all = torch.from_numpy(np.frombuffer(corpus, np.uint8).copy()).to(dev)
+    for name, row, time_it in (("deflate_rows", s_all.view(-1, DFC.BLOCK), True),
+                               ("deflate_short_row", s_all[-45056:][None], False)):
+        h = HC.hashes(HC.u32_at(row), DFC.HASHLOG)
+        key, bb = M.hash_key(h, DFC.HASHLOG)
+        pos = torch.arange(h.shape[1], dtype=torch.int32, device=dev).expand(h.shape).contiguous()
+        out["sort"][name] = sort_shape(S, key, (pos,), bb, f"deflate's {name}", card_label,
+                                       time_it)
+    n_bz = 900004
+    idx = torch.arange(n_bz, dtype=torch.int32, device=dev)[None].contiguous()
+    ranks = torch.from_numpy(rng.integers(0, 1 << 20, n_bz)).to(dev)[None]
+    key, bb = M.hash_key(ranks, 19)
+    out["sort"]["bzip2_pass"] = sort_shape(S, key, (idx,), bb, "a bzip2 doubling pass",
+                                           card_label)
+    key, bb = M.hash_key(s_all[TEXT:TEXT + n_bz].to(torch.int64)[None], 7)
+    out["sort"]["bzip2_occurrence"] = sort_shape(S, key, (idx,), bb,
+                                                 "bzip2's occurrence sort", card_label, False)
+    del s_all, key, idx, ranks
+    out["max_abs_err"] = max(v["max_abs_err"] for v in out["sort"].values())
+
+    # (b) deflate's parse and stream on the card against its CPU run
+    head = corpus[:2 * mib]
+    t_head = torch.from_numpy(np.frombuffer(head, np.uint8).copy())
+    card_parse = DFC._find_matches(t_head.to(dev), DFC.BLOCK)
+    cpu_parse = DFC._find_matches(t_head, DFC.BLOCK)
+    for g, c, what in zip(card_parse, cpu_parse, ("take", "mlen", "off")):
+        if not torch.equal(g.cpu(), c):
+            raise AssertionError(f"deflate's parse on the card differs from its CPU run ({what})")
+    if DF.compress(head, device=dev) != DF.compress(head, device="cpu"):
+        raise AssertionError("deflate.compress on the card differs from its CPU run")
+    log(f"deflate's parse of the first 2 MiB on the card equals its CPU run "
+        f"({int(cpu_parse[0].sum())} matches), and so does its stream")
+
+    # (c) the corpus as one .gz on the card: the slice's full-size path
+    S.reset_launches()
+    t = time.perf_counter()
+    gz, spans = spans_of(lambda: DF.gzip_compress(corpus, device=dev))
+    t_gz = time.perf_counter() - t
+    launches = S.LAUNCHES["sort_rows"]
+    if launches != 1:
+        raise AssertionError(f"gzip_compress(corpus): {launches} row sorts, expected 1 (every "
+                             f"128 KiB block a row)")
+    if zlib.decompress(gz, 31) != corpus:
+        raise AssertionError("zlib does not read gzip_compress(corpus) back to the corpus")
+    log(f"gzip_compress(corpus) on the card ({card_label}): {len(gz)} bytes, ratio "
+        f"{len(corpus) / len(gz):.6f}, {t_gz:.3f} s host clock with tracing "
+        f"({mb / t_gz:.2f} MB/s), {launches} sort_rows launch; zlib reads it back: equal; "
+        f"spans (s) { {k: round(v, 4) for k, v in sorted(spans.items())} }")
+    out["deflate"] = {"launches": launches, "seconds": t_gz, "spans_s": spans,
+                      "ratio": len(corpus) / len(gz)}
+
+    # (d) the port's gzip_decompress (host inflate) of the first 4 MiB's .gz
+    gz4 = DF.gzip_compress(corpus[:4 * mib], device=dev)
+    back, t_inf = best(lambda: DF.gzip_decompress(gz4), 1)
+    if back != corpus[:4 * mib]:
+        raise AssertionError("gzip_decompress does not read the first 4 MiB's .gz back")
+    log(f"gzip_decompress of the first 4 MiB's .gz (host clock): {t_inf:.3f} s "
+        f"({4 * mib / 1e6 / t_inf:.3f} MB/s): equal")
+    out["inflate_s_4MiB"] = t_inf
+
+    # (e) the corpus as a deflate .zip of eight 4 MiB files on the card
+    files = {f"part{i}.bin": corpus[i * 4 * mib:(i + 1) * 4 * mib] for i in range(8)}
+    S.reset_launches()
+    t = time.perf_counter()
+    z8 = ZIP.write_zip(files, device=dev)
+    t_zip = time.perf_counter() - t
+    zip_launches = S.LAUNCHES["sort_rows"]
+    with zipfile.ZipFile(io.BytesIO(z8)) as zf:
+        if {n: zf.read(n) for n in zf.namelist()} != files:
+            raise AssertionError("zipfile does not read the deflate .zip back")
+    log(f"write_zip(8 x 4 MiB, deflate) on the card: {len(z8)} bytes, {t_zip:.3f} s host clock "
+        f"({mb / t_zip:.2f} MB/s), {zip_launches} sort_rows launches (one a file); zipfile "
+        f"reads it back: equal")
+    # (f) the port's read_zip of two of those files
+    two = {k: files[k] for k in ("part0.bin", "part1.bin")}
+    z2 = ZIP.write_zip(two, device=dev)
+    got, t_unzip = best(lambda: ZIP.read_zip(z2, device=dev), 1)
+    if got != two:
+        raise AssertionError("read_zip does not read the two-file .zip back")
+    log(f"read_zip of two 4 MiB deflate entries (host inflate): {t_unzip:.3f} s: equal")
+    # (g) one .zip a method, 256 KiB of text each, read back by the port
+    # (and by zipfile where it has the method)
+    piece = {"m.bin": corpus[TEXT:TEXT + (256 << 10)]}
+    for method in (ZIP.M_STORE, ZIP.M_DEFLATE, ZIP.M_BZIP2, ZIP.M_LZMA, ZIP.M_ZSTD, ZIP.M_XZ):
+        zm = ZIP.write_zip(piece, method=method, device=dev)
+        if ZIP.read_zip(zm, device=dev) != piece:
+            raise AssertionError(f"read_zip does not read the method-{method} .zip back")
+        if method in (ZIP.M_STORE, ZIP.M_DEFLATE, ZIP.M_BZIP2, ZIP.M_LZMA):
+            with zipfile.ZipFile(io.BytesIO(zm)) as zf:
+                if zf.read("m.bin") != piece["m.bin"]:
+                    raise AssertionError(f"zipfile does not read the method-{method} .zip")
+    log("a .zip of each method (store, deflate, bzip2, LZMA, zstd, xz) written on the card "
+        "reads back by the port, and by zipfile for store, deflate, bzip2 and LZMA: equal")
+    out["zip"] = {"launches": zip_launches, "write_s": t_zip, "read2_s": t_unzip,
+                  "ratio": len(corpus) / len(z8)}
+
+    # (h) .tar both ways with tarfile
+    tb = TAR.write_tar(files)
+    with tarfile.open(fileobj=io.BytesIO(tb)) as tf:
+        if {m.name: tf.extractfile(m).read() for m in tf.getmembers()} != files:
+            raise AssertionError("tarfile does not read write_tar's archive back")
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w", format=tarfile.USTAR_FORMAT) as tf:
+        for name, data in files.items():
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+    if TAR.read_tar(tb) != files or TAR.read_tar(buf.getvalue()) != files:
+        raise AssertionError("read_tar does not read the .tar back")
+    log("write_tar(8 x 4 MiB) reads back by tarfile and read_tar, and read_tar reads "
+        "tarfile's: equal")
+
+    # (i) bzip2 at level 9 over the first 4 MiB: five blocks
+    bz_in = corpus[:4 * mib]
+    S.reset_launches()
+    t = time.perf_counter()
+    bz, bz_spans = spans_of(lambda: BZ.compress(bz_in, level=9, device=dev))
+    t_bz = time.perf_counter() - t
+    bz_launches = S.LAUNCHES["sort_rows"]
+    if bz2.decompress(bz) != bz_in:
+        raise AssertionError("bz2 does not read bzip2.compress's stream back")
+    t = time.perf_counter()
+    back, unbz_spans = spans_of(lambda: BZ.decompress(bz, device=dev))
+    t_unbz = time.perf_counter() - t
+    if back != bz_in:
+        raise AssertionError("bzip2.decompress does not read the stream back")
+    first = BZC._blocks(bz_in, 900000)[0][0]
+    if BWT.bwt_forward(first, device=dev) != BWT.bwt_forward(first, device="cpu"):
+        raise AssertionError("bwt_forward on the card differs from its CPU run (first block)")
+    log(f"bzip2.compress(first 4 MiB, level 9) on the card ({card_label}): {len(bz)} bytes, "
+        f"ratio {len(bz_in) / len(bz):.6f}, {t_bz:.3f} s host clock with tracing, "
+        f"{bz_launches} sort_rows launches; bz2 reads it back: equal; spans (s) "
+        f"{ {k: round(v, 4) for k, v in sorted(bz_spans.items())} }; bzip2.decompress "
+        f"{t_unbz:.3f} s: equal, spans (s) "
+        f"{ {k: round(v, 4) for k, v in sorted(unbz_spans.items())} }; the first block's "
+        f"BWT ({len(first)} bytes) on the card equals its CPU run")
+    out["bzip2"] = {"launches": bz_launches, "seconds": t_bz, "spans_s": bz_spans,
+                    "decode_s": t_unbz, "decode_spans_s": unbz_spans,
+                    "ratio": len(bz_in) / len(bz)}
+    # a run of nine bytes across the level-1 cut, after its second byte:
+    # tpu7z's split would leave the group's count byte to start the next
+    # block; the port carries the run's head, and bz2 reads it back
+    cut = bytearray(corpus[TEXT:TEXT + 101000])
+    cut[99998:100007] = b"\xff" * 9
+    cut = bytes(cut)
+    rle = BZC._rle1_encode(cut)
+    if rle[:100000] != cut[:100000]:
+        raise AssertionError("the cut check's text holds a run before the cut")
+    if bz2.decompress(BZ.compress(cut, level=1, device=dev)) != cut:
+        raise AssertionError("bz2 does not read back a run placed across a block cut")
+    log("bzip2 at level 1 of a run placed across the block cut: bz2 reads it back equal")
+
+    # (j) deflate and bzip2 .7z folders, 2 MiB, written and read on the card
+    files2 = {"a.bin": corpus[:mib], "b.bin": corpus[mib:2 * mib]}
+    for method in ("deflate", "bzip2"):
+        t = time.perf_counter()
+        arc = write_archive(files2, method=method, device=dev)
+        t_w = time.perf_counter() - t
+        rd, t_r = best(lambda: SevenZipReader(arc, device=dev).extract_all(), 1)
+        if rd != files2:
+            raise AssertionError(f"the {method} .7z does not read back")
+        log(f"{method} .7z of 2 MiB on the card: {len(arc)} bytes, written {t_w:.3f} s, "
+            f"read {t_r:.3f} s: equal")
+
+    # (k) the CLI's a, t, x (and l of .zip and .tar) on the first 2 MiB
+    work = Path(tempfile.mkdtemp(dir=_build.BUILD))
+    try:
+        src = work / "head.bin"
+        src.write_bytes(head)
+        want = {"zip": ZIP.write_zip({"head.bin": head}, device=dev),
+                "tar": TAR.write_tar({"head.bin": head}),
+                "gz": DF.gzip_compress(head, device=dev),
+                "bz2": BZ.compress(head, level=5, device=dev)}
+        for ext, made in want.items():
+            arc = str(work / f"head.{ext}")
+            verbs = [["a", arc, str(src)], ["t", arc], ["x", arc, f"-o{work / ext}"]]
+            if ext in ("zip", "tar"):
+                verbs.append(["l", arc])
+            for args in verbs:
+                t = time.time()
+                rc, said = cli_run(args, dev)
+                log(f"cli {args[0]} head.{ext}: exit {rc} in {time.time() - t:.1f} s: "
+                    f"{said.strip().splitlines()[-1]!r}")
+                if rc != 0:
+                    raise AssertionError(f"the CLI's {args[0]} of head.{ext} exited {rc}")
+            if Path(arc).read_bytes() != made:
+                raise AssertionError(f"the CLI's head.{ext} differs from the API's")
+            if (work / ext / ("head.bin" if ext in ("zip", "tar") else "head")).read_bytes() \
+                    != head:
+                raise AssertionError(f"the CLI's head.{ext} does not extract to its input")
+        log("the CLI's .zip, .tar, .gz and .bz2 equal the API's and extract to their input")
+    finally:
+        shutil.rmtree(work)
     return out
 
 
@@ -1589,6 +1889,15 @@ def main() -> int:
     sort_entry["launches_by_path"].update(
         sevenzip_zstd=sz["zstd_solid"]["sort_rows_launches"],
         sevenzip_zstd_aes=sz["zstd_solid_aes"]["sort_rows_launches"])
+    # 11. DEFLATE, gzip, .zip, .tar and bzip2 on the card
+    t = time.time()
+    df = deflate_bzip2_phase(corpus, dev, S, M, f"{card_name}, {power_limit}")
+    log(f"phase 11 in {time.time() - t:.1f} s")
+    sort_entry["max_abs_err"] = max(sort_entry["max_abs_err"], df["max_abs_err"])
+    sort_entry["launches_by_path"].update(deflate=df["deflate"]["launches"],
+                                          bzip2=df["bzip2"]["launches"])
+    sort_entry["deflate_path"] = df["sort"]["deflate_rows"]
+    sort_entry["bzip2_path"] = df["sort"]["bzip2_pass"]
 
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

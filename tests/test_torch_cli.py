@@ -128,17 +128,17 @@ def test_test_reports_a_corrupt_frame(workdir, want, capsys):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["a", "-tbzip2", "out.bz2", "input.bin"], "-tbzip2: the port writes only .lz4"),
+    (["a", "-tbrotli", "out.br", "input.bin"], "-tbrotli: the port writes only .lz4"),
     (["a", "-tlz4", "-m0=zstd", "out.lz4", "input.bin"],
-     "-tlz4: the port writes only .lz4, .zst and .xz, each with its own codec"),
-    (["a", "-t7z", "-m0=bzip2", "out.7z", "input.bin"],
-     "7z writer: method bzip2 is not ported to tpu7z_torch yet"),
+     "-tlz4: the port writes only .lz4, .zst, .xz, .gz and .bz2, each with its own codec"),
+    (["a", "-t7z", "-m0=brotli", "out.7z", "input.bin"],
+     "7z writer: method brotli is not ported to tpu7z_torch yet"),
     (["u", "out.lz4", "input.bin"], "command 'u' is not served by the port"),
     (["a", "-tlz4", "-mdev", "-v10m", "out.lz4", "input.bin"],
      "switch -v10m is not served by the port"),
-    (["a", "-tgzip", "-mdev", "out.gz", "input.bin"], "-tgzip: the port writes only"),
-    (["l", "out.lz4"], "l: the port lists only .7z archives, not lz4"),
-    (["a", "-tzip", "out.zip", "input.bin"], "-tzip: the port writes only .lz4"),
+    (["a", "-tlzip", "-mdev", "out.lz", "input.bin"], "-tlzip: the port writes only"),
+    (["l", "out.lz4"], "l: the port lists only .7z, .zip and .tar archives, not lz4"),
+    (["a", "-tcab", "out.cab", "input.bin"], "-tcab: the port writes only .lz4"),
 ])
 def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
     assert main(args, device="cpu") == 2
@@ -528,3 +528,101 @@ def test_extract_drops_setuid_setgid_and_sticky_bits(tmp_path, monkeypatch):
     cli._write_files(opts, {"s": b"x", "d/t": b"y"}, {"s": (None, 0o6755), "d/t": (None, 0o1644)})
     assert (tmp_path / "out" / "s").stat().st_mode & 0o7777 == 0o755
     assert (tmp_path / "out" / "d" / "t").stat().st_mode & 0o7777 == 0o644
+
+
+# --- .zip, .tar, .gz and .bz2, each against tpu7z.cli ---
+
+@pytest.mark.parametrize("args", [
+    ["a", "o.zip", "input.bin", "d"],
+    ["a", "-tzip", "-m0=bzip2", "-mx1", "o.zip", "input.bin", "d"],
+    ["a", "-tzip", "-m0=copy", "o.zip", "d"],
+    ["a", "-tzip", "-m0=lzma", "o.zip", "input.bin"],
+    ["a", "-tzip", "-m0=zstd", "-mx3", "o.zip", "d"],
+    ["a", "-tzip", "-m0=xz", "o.zip", "d"],
+    ["a", "-tzip", "-m0=nosuch", "o.zip", "input.bin"],
+    ["a", "-tzip", "-so", "o.zip", "input.bin"],
+    ["a", "o.tar", "input.bin", "d"],
+    ["a", "-ttar", "o.bin", "input.bin"],
+    ["a", "o.gz", "input.bin"],
+    ["a", "-tgzip", "-mx9", "-mdev", "o.gz", "input.bin"],
+    ["a", "o.bz2", "input.bin"],
+    ["a", "-tbzip2", "-mx1", "-so", "o.bz2", "input.bin"],
+    ["a", "o.gz", "input.bin", "d"],
+], ids=["zip", "zip_bzip2", "zip_copy", "zip_lzma", "zip_zstd", "zip_xz",
+        "zip_unknown_is_deflate", "zip_stdout", "tar", "tar_other_name", "gz",
+        "gz_level_and_mdev_ignored", "bz2", "bz2_mx1_stdout", "gz_two_inputs"])
+def test_add_zip_tar_gz_bz2_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
+    """`a` of a .zip, .tar, .gz or .bz2: tpu7z's bytes, stdout and exit
+    code for its methods, levels and names; errors as tpu7z's."""
+    monkeypatch.delenv("TPU7Z_DEVICE", raising=False)
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, _inputs, args)
+    assert (rc, out, port) == (ref_rc, ref_out, ref)
+    if rc:
+        assert rc == 2 and err == ref_err
+
+
+def test_zip_ppmd_names_tpu7z_cli(workdir, capsys):
+    assert main(["a", "-tzip", "-m0=ppmd", "o.zip", "input.bin"], device="cpu") == 2
+    err = capsys.readouterr().err
+    assert "ppmd is not ported" in err and "use python -m tpu7z.cli" in err
+    assert not (workdir / "o.zip").exists()
+
+
+@pytest.fixture(scope="module")
+def stream_kinds():
+    """(files, {name: tpu7z's archive of them}) for each type and method."""
+    from tpu7z.containers import tar as jtar
+    from tpu7z.containers import zip as jzip
+    from tpu7z.models import bzip2 as jbz
+    from tpu7z.models import deflate as jdef
+    rng = np.random.default_rng(6)
+    files = {"input.bin": _input()[:20000], "d/e/ünï.txt": b"nested text " * 100,
+             "d/x.bin": rng.integers(0, 256, 1500, np.uint8).tobytes(), "d/empty": b""}
+    one = files["input.bin"]
+    return files, {
+        "a.zip": jzip.write_zip(files), "b.zip": jzip.write_zip(files, method=12),
+        "a.tar": jtar.write_tar(files), "in.bin.gz": jdef.gzip_compress(one),
+        "in.bin.bz2": jbz.compress(one, level=2), "zipped": jzip.write_zip(files),
+        "tarred": jtar.write_tar(files), "gzipped": jdef.gzip_compress(one),
+        "bzipped": jbz.compress(one, level=1),
+    }
+
+
+@pytest.mark.parametrize("verb", [
+    ["t"], ["x", "-oout"], ["e", "-oout"], ["x", "-so"], ["l"], ["x", "-mmt1", "-oout"]],
+    ids=["t", "x", "e", "x_so", "l", "x_mmt1"])
+@pytest.mark.parametrize("name", ["a.zip", "b.zip", "a.tar", "in.bin.gz", "in.bin.bz2",
+                                  "zipped", "tarred", "gzipped", "bzipped"])
+def test_read_zip_tar_gz_bz2_as_tpu7z(tmp_path, monkeypatch, capsysbinary, stream_kinds,
+                                      name, verb):
+    """`t`, `x`/`e` (files, or -so) and `l` of tpu7z's archives, by
+    extension or by magic: tpu7z's exit codes, stdout and files. `l` of
+    a .gz or .bz2 is not served (exit 2)."""
+    files, archives = stream_kinds
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, lambda d: (d / name).write_bytes(archives[name]),
+        [verb[0], name, *verb[1:]])
+    single = name.endswith((".gz", ".bz2")) or name in ("gzipped", "bzipped")
+    if verb == ["l"] and single:
+        assert ref_rc == 0 and rc == 2 and "use python -m tpu7z.cli" in err
+        return
+    assert (rc, out, port) == (ref_rc, ref_out, ref)
+    assert rc == 0
+    if verb[0] in ("x", "e") and "-so" not in verb and not single:
+        assert {k[4:]: v for k, v in port.items() if k.startswith("out/")} == files
+
+
+@pytest.mark.parametrize("name", ["in.bin.gz", "in.bin.bz2", "a.zip"])
+def test_corrupt_zip_gz_bz2_exit_2_as_tpu7z(tmp_path, monkeypatch, capsysbinary,
+                                            stream_kinds, name):
+    bad = bytearray(stream_kinds[1][name])
+    bad[-6] ^= 0x10
+    for verb in (["t"], ["x", "-oout"]):
+        sub = tmp_path / verb[0]
+        sub.mkdir()
+        (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+            sub, monkeypatch, capsysbinary, lambda d: (d / name).write_bytes(bytes(bad)),
+            [verb[0], name, *verb[1:]])
+        assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref)
+        assert rc == 2 and err.startswith("ERROR: ")

@@ -69,7 +69,7 @@ def _both_read(archive_j, archive_t, files, password=None):
 
 @pytest.mark.parametrize("level", [1, 5, 9])
 @pytest.mark.parametrize("solid", [True, False], ids=["solid", "non_solid"])
-@pytest.mark.parametrize("method", ["copy", "lzma2", "zstd", "lz4", "bcj2"])
+@pytest.mark.parametrize("method", ["copy", "lzma2", "zstd", "lz4", "bcj2", "deflate", "bzip2"])
 def test_write_archive_equals_tpu7z(method, solid, level):
     files = _files(level)
     want = jw.write_archive(files, method=method, level=level, solid=solid)
@@ -120,12 +120,12 @@ def test_errors_of_the_writer_as_tpu7z():
         write_archive(files, encrypt_header=True, device="cpu")
     with pytest.raises(ParamError, match="unknown method lzma"):
         write_archive(files, method="lzma", device="cpu")
-    for method in ("bzip2", "deflate", "brotli", "ppmd"):
+    for method in ("brotli", "ppmd"):
         with pytest.raises(UnsupportedError, match="use python -m tpu7z.cli"):
             write_archive(files, method=method, device="cpu")
 
 
-@pytest.mark.parametrize("method", ["bzip2", "deflate", "brotli", "ppmd"])
+@pytest.mark.parametrize("method", ["brotli", "ppmd"])
 def test_unported_methods_name_tpu7z_cli(method):
     """tpu7z reads them; the port says where to go instead of skipping."""
     from tpu7z_torch.utils.errors import UnsupportedError
@@ -325,6 +325,36 @@ def test_filter_chained_to_lzma2_reads_as_tpu7z(name):
               "sizes": [len(files["exe"]), len(enc(files["exe"]))],
               "crc": zlib.crc32(files["exe"])}
     arc = _archive([folder], [packed], ["exe"], files)
+    assert _read(JReader, arc) == files
+    assert _read(SevenZipReader, arc) == files
+
+
+def test_deflate64_folder_reads_as_tpu7z():
+    """tpu7z writes no Deflate64; a folder of a stream whose match uses
+    symbol 285's 16 extra bits and distance code 30."""
+    import zlib
+    from tpu7z.models.deflate import codec as jdef
+    head = _data(3, 33000)
+    w = jdef._LSBWriter()
+    w.write(1, 1)
+    w.write(1, 2)
+    codes = jdef._canonical_codes(jdef._FIXED_LIT_LEN)
+
+    def sym(s):
+        n = int(jdef._FIXED_LIT_LEN[s])
+        w.write(jdef._rev_bits(int(codes[s]), n), n)
+
+    for b in head:
+        sym(b)
+    sym(285)
+    w.write(1000 - 3, 16)
+    w.write(jdef._rev_bits(30, 5), 5)
+    w.write(33000 - 32769, 14)
+    sym(256)
+    packed = w.close()
+    files = {"d64": head + head[:1000]}
+    folder = _single(JF.M_DEFLATE64, b"", packed, len(files["d64"]), zlib.crc32(files["d64"]))
+    arc = _archive([folder], [packed], ["d64"], files)
     assert _read(JReader, arc) == files
     assert _read(SevenZipReader, arc) == files
 

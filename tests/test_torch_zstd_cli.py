@@ -106,9 +106,9 @@ def test_corrupt_lz4_exits_2(workdir, capsys, kind, message, mt):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["a", "-tgzip", "out.gz", "input.bin"], "-tgzip: the port writes only .lz4"),
+    (["a", "-tlizard", "out.liz", "input.bin"], "-tlizard: the port writes only .lz4"),
     (["a", "-m0=lzma", "out.xz", "input.bin"],
-     "-txz: the port writes only .lz4, .zst and .xz, each with its own codec"),
+     "-txz: the port writes only .lz4, .zst, .xz, .gz and .bz2, each with its own codec"),
     (["a", "-tzstd", "-i!*.bin", "out.zst", "input.bin"], "switch -i!*.bin is not served"),
     (["a", "-t7z", "-mdev", "-m0=ppmd", "out.7z", "input.bin"],
      "7z writer: method ppmd is not ported to tpu7z_torch yet"),

@@ -1,12 +1,17 @@
-"""The port's command line: tpu7z's CLI for .7z, .lz4, .zst and .xz.
+"""The port's command line: tpu7z's CLI for .7z, .zip, .tar, .lz4, .zst,
+.xz, .gz and .bz2.
 
     python -m tpu7z_torch.cli a [-t7z] [-m0={method}] [-mx{N}] [-p{password}] [-mhe] archive.7z inputs...
+    python -m tpu7z_torch.cli a -tzip [-m0={method}] [-mx{N}] archive.zip inputs...
+    python -m tpu7z_torch.cli a -ttar archive.tar inputs...
     python -m tpu7z_torch.cli a -tlz4 [-mdev] archive.lz4 input
     python -m tpu7z_torch.cli a -tzstd [-mx{N}] [-mmt{N}] [-m0=zstd:wlog=N] archive.zst input
     python -m tpu7z_torch.cli a -txz archive.xz input
+    python -m tpu7z_torch.cli a -tgzip archive.gz input
+    python -m tpu7z_torch.cli a -tbzip2 [-mx{N}] archive.bz2 input
     python -m tpu7z_torch.cli t archive [-p{password}] [-mmt{N}]
     python -m tpu7z_torch.cli x archive [-o{dir}] [-p{password}] [-so] [-mmt{N}]
-    python -m tpu7z_torch.cli l archive.7z [-slt] [-p{password}]
+    python -m tpu7z_torch.cli l archive.7z|.zip|.tar [-slt] [-p{password}]
 
 The archive's type comes from -t, else from its name (tpu7z's table of
 extensions), else, for `t`, `x` and `l`, from its first bytes; a name
@@ -30,23 +35,34 @@ renamed over its name, or to standard output with -so.
       -m0=zstd:x{N} for the level) runs the tensor encoder, whose parse
       runs on the card (models/zstd/compressor.py); else the host encoder;
   -txz: one block of the host library's LZMA2, a CRC64 check
-      (containers/xz.py); the level is ignored, as tpu7z ignores it.
+      (containers/xz.py); the level is ignored, as tpu7z ignores it;
+  .zip (containers/zip.py): every input an entry, -m0= copy, deflate (the
+      default; also any name tpu7z's table does not know), bzip2, lzma,
+      zstd or xz at -mx{N} (default 6), an entry stored where its codec
+      does not shrink it; deflate's parse and bit packing and bzip2's block
+      sort run on the card, zstd's parse too;
+  .tar (containers/tar.py): ustar, every input a file;
+  -tgzip: DEFLATE on the card in tpu7z's gzip member (the level ignored);
+  -tbzip2: bzip2 at -mx{N} (default 5), its block sort on the card.
 The single-stream types take one input; more are refused as in tpu7z.
 The device flag (-mdev, dev in -m0, TPU7Z_DEVICE) selects lz4's device
 coder; with the other types, which have none, it is ignored, as in
 tpu7z, with a note on stderr. -mmt takes tpu7z's grammar
 (utils/methodprops.py: parse_mt).
 `t` tests and `x`/`e` extract: a .7z's files (with their unix modes, as
-tpu7z sets them) under -o{dir}, or every file's bytes to standard output
-with -so; a .lz4, .zst or .xz stream's frames and blocks in parallel
-(parallel/decode.py), serially at -mmt1. `x` names a stream's output as
-tpu7z does: by default the archive's name with each known extension
-stripped in turn, at -mmt1 with one stripped or `.out` added; where that
-name is the archive itself, `.out` is added (tpu7z would overwrite its
-input). `l` lists a .7z's files, and with -slt their technical lines.
+tpu7z sets them), a .zip's or a .tar's, under -o{dir}, or every file's
+bytes to standard output with -so; a .lz4, .zst or .xz stream's frames
+and blocks in parallel (parallel/decode.py), serially at -mmt1; a .gz
+(host inflate) or .bz2 (its inverse BWT on the card) in one piece. `x`
+names a stream's output as tpu7z does: by default the archive's name with
+each known extension stripped in turn, at -mmt1 with one stripped or
+`.out` added; where that name is the archive itself, `.out` is added
+(tpu7z would overwrite its input). `l` lists a .7z's files, and with -slt their technical lines,
+and a .zip's or a .tar's files with their sizes, as tpu7z does.
 The rest of tpu7z's CLI (other verbs, types, codecs and switches) is
 `python -m tpu7z.cli`'s: asking the port for it exits with 2 and says
-so. The bytes written are tpu7z's. The .7z verbs run on the card.
+so. The bytes written are tpu7z's. The .7z, .zip, .gz and .bz2 verbs run
+on the card.
 """
 
 from __future__ import annotations
@@ -57,6 +73,8 @@ from dataclasses import dataclass, field
 
 from ..containers import xz
 from ..containers.sevenzip import SevenZipReader, write_archive
+from ..containers.tar import read_tar, write_tar
+from ..containers.zip import read_zip, write_zip
 from ..models.lz4 import frame
 from ..models.registry import get_codec
 from ..models.zstd import frame as zframe
@@ -87,10 +105,35 @@ EXT_TYPES = {
 }
 # where the content decides before the extension: an .exe may hold a 7z
 AMBIGUOUS_EXTS = {".exe": "pe", ".dll": "pe", ".sys": "pe"}
-# tpu7z's magic tests of the types the port serves (tpu7z/cli/main.py:64-71)
-MAGICS = ((b"7z\xbc\xaf\x27\x1c", "7z"), (zframe.MAGIC.to_bytes(4, "little"), "zstd"),
-          (frame.MAGIC.to_bytes(4, "little"), "lz4"), (xz.MAGIC, "xz"))
-SERVED = ("7z", "lz4", "zstd", "xz")
+# tpu7z's magic tests (tpu7z/cli/main.py:64-97), in its order, up to the
+# last type the port serves; the types among them that the port does not
+# serve are named (and refused) as tpu7z names them
+MAGICS = (
+    ("7z", lambda d: d[:6] == b"7z\xbc\xaf\x27\x1c"),
+    ("zstd", lambda d: d[:4] == zframe.MAGIC.to_bytes(4, "little")),
+    ("lz4", lambda d: d[:4] == frame.MAGIC.to_bytes(4, "little")),
+    ("xz", lambda d: d[:6] == xz.MAGIC),
+    ("bzip2", lambda d: d[:3] == b"BZh"),
+    ("gzip", lambda d: d[:2] == b"\x1f\x8b"),
+    ("z", lambda d: d[:2] == b"\x1f\x9d"),
+    ("lzip", lambda d: d[:4] == b"LZIP"),
+    ("wim", lambda d: d[:8] == b"MSWIM\x00\x00\x00"),
+    ("cab", lambda d: d[:4] == b"MSCF"),
+    ("ext", lambda d: len(d) > 1082 and d[1080:1082] == b"\x53\xef"),
+    ("xar", lambda d: d[:4] == b"xar!"),
+    ("lzh", lambda d: len(d) > 7 and d[2:5] == b"-lh" and d[6:7] == b"-"),
+    ("lz5", lambda d: d[:4] == b"\x05\x22\x4d\x18"),
+    ("lizard", lambda d: d[:4] == b"\x06\x22\x4d\x18"),
+    ("zip", lambda d: d[:4] in (b"PK\x03\x04", b"PK\x05\x06")),
+    ("tar", lambda d: len(d) > 262 and d[257:262] == b"ustar"),
+)
+SERVED = ("7z", "zip", "tar", "lz4", "zstd", "xz", "gzip", "bzip2")
+ARCHIVES = ("7z", "zip", "tar")      # many files, each under its own name
+# the single-stream types whose codec takes the device
+ON_CARD = ("gzip", "bzip2")
+# tpu7z's .zip method names (tpu7z/cli/main.py:336-337); another is deflate
+ZIP_METHODS = {"copy": 0, "deflate": 8, "bzip2": 12, "lzma": 14, "zstd": 93, "xz": 95,
+               "ppmd": 98}
 TYPES = {"zst": "zstd"}
 # the extensions tpu7z's extract strips from an output name: each in turn
 # by default (tpu7z/cli/main.py:524), the first that matches at -mmt1
@@ -173,8 +216,8 @@ def _sniff_type(path: str, data: bytes | None = None) -> str:
             if path.endswith(ext):
                 return t
     if data:
-        for magic, t in MAGICS:
-            if data.startswith(magic):
+        for t, test in MAGICS:
+            if test(data):
                 return t
     if fallback is not None:
         if data and data[:2] == b"MZ" and data.find(b"7z\xbc\xaf\x27\x1c", 0, 1 << 22) > 0:
@@ -223,9 +266,10 @@ def _add(opts: Options, args, device) -> int:
     # the stream whatever -m0 names; the other types have no device coder
     asked = opts.device or bool(opts.props.get("dev"))
     dev = asked and atype == "lz4"
-    if not dev and atype != "7z" and (atype not in SERVED or method != atype):
-        raise UsageError(f"-t{opts.type or atype}: the port writes only .lz4, .zst and "
-                         f".xz, each with its own codec, and .7z; {ELSEWHERE}")
+    if not dev and atype not in ARCHIVES and (atype not in SERVED or method != atype):
+        raise UsageError(f"-t{opts.type or atype}: the port writes only .lz4, .zst, .xz, "
+                         f".gz and .bz2, each with its own codec, and .7z, .zip and .tar; "
+                         f"{ELSEWHERE}")
     if asked and not dev:
         print(f"note: -mdev: {atype} has no device coder; the flag is ignored, as in tpu7z",
               file=sys.stderr)
@@ -234,6 +278,11 @@ def _add(opts: Options, args, device) -> int:
         out = write_archive(files, method=opts.method or "lzma2",
                             level=opts.level or DEFAULT_LEVEL, password=opts.password,
                             encrypt_header=opts.encrypt_header, device=device)
+    elif atype == "zip":
+        out = write_zip(files, method=ZIP_METHODS.get(opts.method or "deflate", 8),
+                        level=opts.level or 6, device=device)
+    elif atype == "tar":
+        out = write_tar(files)
     else:
         data = _one_stream(files, opts.type or atype)
         if dev:
@@ -246,6 +295,8 @@ def _add(opts: Options, args, device) -> int:
                 kw["device"] = device
             if opts.threads and atype == "zstd":
                 kw["threads"] = opts.threads
+            if atype in ON_CARD:
+                kw["device"] = device
             out = get_codec(atype).compress(data, level=opts.level or DEFAULT_LEVEL, **kw)
     if opts.stdout:
         sys.stdout.buffer.write(out)
@@ -337,13 +388,17 @@ def _decode(opts: Options, args, test_only: bool, device) -> int:
             data = f.read()
     atype = TYPES.get(opts.type, opts.type) if opts.type else _sniff_type(path or "", data)
     if atype not in SERVED:
-        raise UsageError(f"{path or 'stdin'}: the port reads .7z, .lz4, .zst and .xz only; "
-                         f"{ELSEWHERE}")
+        raise UsageError(f"{path or 'stdin'}: the port reads .7z, .zip, .tar, .lz4, .zst, .xz, "
+                         f".gz and .bz2 only; {ELSEWHERE}")
     meta = {}
     if atype == "7z":
         rd = SevenZipReader(data, password=opts.password, device=device)
         files = rd.extract_all()
         meta = _metadata(rd)
+    elif atype in ("zip", "tar"):
+        files = read_zip(data, device=device) if atype == "zip" else read_tar(data)
+    elif atype in ON_CARD:
+        files = {None: get_codec(atype).decompress(data, device=device)}
     # frames and blocks decode in parallel; -mmt1 forces the serial path
     elif atype == "xz" or opts.threads == 1:
         files = {None: get_codec(atype).decompress(data)}
@@ -359,21 +414,23 @@ def _decode(opts: Options, args, test_only: bool, device) -> int:
         for content in files.values():
             sys.stdout.buffer.write(content)
         return 0
-    if atype != "7z":
+    if atype not in ARCHIVES:
         files = {_output_name(opts, path) if path else "stdin": files[None]}
     _write_files(opts, files, meta)
     return 0
 
 
 def _list(opts: Options, args, device) -> int:
-    """`l` of a .7z, as tpu7z's `cmd_list` (tpu7z/cli/main.py:637-665)."""
+    """`l` of a .7z, a .zip or a .tar, as tpu7z's `cmd_list`
+    (tpu7z/cli/main.py:637-667)."""
     if not args:
         raise UsageError("l: missing archive")
     path = args[0]
 
     def served(atype):
-        if atype != "7z":
-            raise UsageError(f"l: the port lists only .7z archives, not {atype}; {ELSEWHERE}")
+        if atype not in ARCHIVES:
+            raise UsageError(f"l: the port lists only .7z, .zip and .tar archives, not "
+                             f"{atype}; {ELSEWHERE}")
         return atype
 
     # a name that says another type is refused before it is read
@@ -383,6 +440,11 @@ def _list(opts: Options, args, device) -> int:
     atype = served(opts.type or _sniff_type(path, data))
     print(f"Listing archive: {path}")
     print(f"Type = {atype}")
+    if atype != "7z":
+        files = read_zip(data, device=device) if atype == "zip" else read_tar(data)
+        for name, content in files.items():
+            print(f"{len(content):>10}  {'-':>8}  {name}")
+        return 0
     rd = SevenZipReader(data, password=opts.password, device=device)
     if opts.slt:
         print("----------")
@@ -403,8 +465,8 @@ def _list(opts: Options, args, device) -> int:
 
 def main(argv=None, *, device=None) -> int:
     """Run one command; returns the exit code. The device encoders and the
-    .7z verbs run on the CUDA card unless `device` names another (the
-    tests name the CPU)."""
+    .7z, .zip, .gz and .bz2 verbs run on the CUDA card unless `device`
+    names another (the tests name the CPU)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(__doc__)

@@ -75,12 +75,8 @@ M_FLZMA2 = 0x4F71102  # fork registers flzma2 as alias of 0x21; keep 0x21
 # has it). The reader, the writer and models/registry.py refuse these
 # names with a message that ends in ELSEWHERE.
 UNPORTED = {
-    "bzip2": (M_BZIP2, True, True),
-    "deflate": (M_DEFLATE, True, True),
-    "deflate64": (M_DEFLATE64, False, False),
     "brotli": (M_BROTLI, True, True),
     "ppmd": (M_PPMD, True, False),
-    "gzip": (None, False, True),
     "lzip": (None, False, True),
     "z": (None, False, True),
     "lz5": (None, False, True),

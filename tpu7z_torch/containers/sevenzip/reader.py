@@ -9,9 +9,9 @@ resolving bind pairs recursively from the folder's final output stream.
 Folders are independent -> the parallel decode unit (MtDec analog).
 
 The reader runs on the device the caller names (the CUDA card unless
-`device` names the CPU): AES decryption and the whole-array branch
-filters are tensor code there; the codecs, x86, IA-64, RISC-V and BCJ2
-run on the host. Methods the port has not ported yet raise
+`device` names the CPU): AES decryption, the whole-array branch
+filters and bzip2's inverse BWT are tensor code there; the other codecs,
+x86, IA-64, RISC-V and BCJ2 run on the host. Methods the port has not ported yet raise
 UnsupportedError and name tpu7z's CLI.
 """
 
@@ -20,6 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from ...device import resolve_device
+from ...models import deflate
 from ...models.filters import bcj, delta
 from ...models.lz4 import frame as lz4_frame
 from ...models.lzma import decoder as lzma1
@@ -484,6 +485,12 @@ def _run_decoder(coder: Coder, ins: list[bytes], out_size: int,
         return lzma1.decompress_raw(data, coder.props, out_size)
     if mid == F.M_ZSTD:
         return zstd_frame.decompress(data)
+    if mid in (F.M_BZIP2, F.M_DEFLATE):
+        from ...models.registry import get_codec  # the registry imports this package
+        name = "bzip2" if mid == F.M_BZIP2 else "deflate"
+        return get_codec(name).decompress(data, out_size=out_size, device=device)
+    if mid == F.M_DEFLATE64:
+        return deflate.decompress(data, max_out=out_size, deflate64=True)
     if mid == F.M_LZ4:
         return lz4_frame.decompress(data)
     if mid == F.M_DELTA:

@@ -13,8 +13,10 @@ stream)], with the final output being coder0's.
 
 `write_archive` and `update_archive` run on the device the caller names
 (the CUDA card unless `device` names the CPU): zstd folders through the
-tensor encoder, whose parse runs there (models/zstd/compressor.py);
-LZMA2, LZ4, BCJ2 and AES encryption (csrc/aes.cpp) on the host. Methods
+tensor encoder, whose parse runs there (models/zstd/compressor.py),
+deflate folders with their parse and bit packing there, bzip2 folders
+with their block sort there; LZMA2, LZ4, BCJ2 and AES encryption
+(csrc/aes.cpp) on the host. Methods
 the port has not ported yet raise UnsupportedError and name tpu7z's CLI.
 """
 
@@ -47,6 +49,10 @@ def _encode_stream(method: str, data: bytes, level: int, *, device=None):
             compressor.compress(data, level=lvl, device=device)
     if method == "lz4":
         return F.M_LZ4, bytes([1, 10, 4, 0, 0]), lz4_frame.compress_frame(data)
+    if method in ("bzip2", "deflate"):
+        from ...models.registry import get_codec  # the registry imports this package
+        codec = get_codec(method)
+        return codec.method_id, b"", codec.compress(data, level=level, device=device)
     if method in F.UNPORTED and F.UNPORTED[method][1]:
         raise UnsupportedError(f"7z writer: method {method} is not ported to tpu7z_torch "
                                f"yet; {F.ELSEWHERE}")

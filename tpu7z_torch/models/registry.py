@@ -3,8 +3,9 @@ RegisterCodec/ICompressCoder analog (CPP/7zip/Common/RegisterCodec.h:22-104,
 CPP/7zip/ICoder.h).
 
 Maps method names to stream codecs, each a (compress, decompress) pair
-over whole byte streams, with tpu7z's name, 7z method ID and levels. The
-port registers the codecs it has; `get_codec` of another of tpu7z's
+over whole byte streams, with tpu7z's name, 7z method ID and levels.
+bzip2, deflate and gzip take `device=` (the CUDA card unless it names
+the CPU) for their tensor stages. The port registers the codecs it has; `get_codec` of another of tpu7z's
 names raises UnsupportedError and names tpu7z's CLI (ROADMAP.md lists
 them, to be registered as their codecs are ported).
 """
@@ -60,6 +61,36 @@ def _lzma2_d(data, out_size=None, **kw):
     return lzma2.decompress(data, out_size)
 
 
+def _bzip2_c(data, level=9, device=None, **kw):
+    from . import bzip2
+    return bzip2.compress(data, level=max(1, min(level, 9)), device=device)
+
+
+def _bzip2_d(data, device=None, **kw):
+    from . import bzip2
+    return bzip2.decompress(data, device=device)
+
+
+def _deflate_c(data, level=6, device=None, **kw):
+    from . import deflate
+    return deflate.compress(data, device=device)
+
+
+def _deflate_d(data, out_size=None, **kw):
+    from . import deflate
+    return deflate.decompress(data, max_out=out_size)
+
+
+def _gzip_c(data, level=6, device=None, **kw):
+    from . import deflate
+    return deflate.gzip_compress(data, device=device)
+
+
+def _gzip_d(data, **kw):
+    from . import deflate
+    return deflate.gzip_decompress(data)
+
+
 def _xz_c(data, level=5, **kw):
     from ..containers import xz
     return xz.compress(data)
@@ -103,9 +134,12 @@ _register("lz4", 0x4F71104, _lz4_c, _lz4_d, (1, 12))
 # models/zstd/frame.py opens the zstd.compress and zstd.decompress spans
 _register("zstd", 0x4F71101, _zstd_c, _zstd_d, (1, 22), traced=False)
 _register("lzma2", 0x21, _lzma2_c, _lzma2_d, (1, 9))
-# xz is a container format, not a 7z coder: method_id 0 means it is not
-# addressable from a 7z folder, as in tpu7z
+_register("bzip2", 0x040202, _bzip2_c, _bzip2_d, (1, 9))
+_register("deflate", 0x040108, _deflate_c, _deflate_d, (1, 9))
+# xz and gzip are container formats, not 7z coders: method_id 0 means
+# they are not addressable from a 7z folder, as in tpu7z
 _register("xz", 0, _xz_c, _xz_d, (1, 9))
+_register("gzip", 0, _gzip_c, _gzip_d, (1, 9))
 
 
 def get_codec(name: str) -> CodecInfo:

@@ -11,12 +11,15 @@ This module provides:
 - `pack_bits_lsb`: fully vectorized numpy packer used by the FSE/Huffman
   encoders (host code, as tpu7z/ops/bitstream.py) — per-symbol (value, nbits) arrays are laid out via prefix sum
   and scatter-OR, replacing the reference's sequential BIT_addBits/
-  BIT_flushBits loop (C/zstd/bitstream.h) with a data-parallel kernel.
+  BIT_flushBits loop (C/zstd/bitstream.h) with a data-parallel kernel;
+- `pack_bits_lsb_tensor`: the same packing as tensor code on the device
+  of its inputs (deflate's stream, on the card).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..utils.errors import CorruptError
 
@@ -156,6 +159,13 @@ def pack_bits_lsb(values: np.ndarray, nbits: np.ndarray,
     shifted into a 64-bit window covering its byte span and scattered with
     bitwise-OR. Values are at most 56 bits wide + 7 bit shift = 63 bits,
     so one uint64 window per symbol suffices for nbits <= 56.
+
+    `pack_bits_lsb_tensor` is the same algorithm as tensor code, for a
+    stream made on the card. This numpy form stays for the host entropy
+    coders (zstd's FSE and Huffman streams): on CPU tensors index_add_
+    spreads its scatter over torch's intra-op threads, which at those
+    streams' sizes (10**4-10**5 fields) can make it slower than numpy's
+    `bitwise_or.at`.
     """
     values = np.asarray(values, dtype=np.uint64)
     nbits = np.asarray(nbits, dtype=np.int64)
@@ -183,6 +193,32 @@ def pack_bits_lsb(values: np.ndarray, nbits: np.ndarray,
         byte_vals = ((window >> np.uint64(8 * b)) & np.uint64(0xFF)).astype(np.uint8)
         np.bitwise_or.at(out, byte_idx + b, byte_vals)
     return out[:total_bytes].tobytes()
+
+
+def pack_bits_lsb_tensor(values, nbits):
+    """uint8 tensor on the device of `values`: the fields values[i], each
+    nbits[i] <= 56 bits wide (int64 tensors), written LSB-first one after
+    another with the last byte padded with zeros, as a BitWriterLSB gives
+    them for the same writes and `close()`. Bit offsets are an exclusive
+    cumsum; a field shifted by its offset's low 3 bits fits a window below
+    2**63; fields share no bit, so a scatter-add of the windows' bytes
+    equals their OR. One host read: the total length and the widest
+    field."""
+    nbits = nbits.to(torch.int64)
+    if nbits.numel() == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=values.device)
+    ends = torch.cumsum(nbits, 0)
+    starts = ends - nbits
+    total, widest = torch.stack([ends[-1], nbits.max()]).tolist()
+    if widest > 56:
+        raise ValueError("pack_bits_lsb_tensor supports at most 56 bits per field")
+    window = (values & ((1 << nbits) - 1)) << (starts & 7)
+    byte = starts >> 3
+    size = (total + 7) >> 3
+    out = torch.zeros(size + 8, dtype=torch.int32, device=values.device)
+    for k in range(8):
+        out.index_add_(0, byte + k, ((window >> (8 * k)) & 0xFF).to(torch.int32))
+    return out[:size].to(torch.uint8)
 
 
 def reverse_pack_bits_lsb(values: np.ndarray, nbits: np.ndarray) -> bytes:

@@ -1,8 +1,9 @@
 """Hash chains, exact match lengths and the greedy walk of one byte row,
 as tensor code on the device of its input (the CUDA card, or the CPU when
 the caller names it): the LZ matcher that tpu7z runs as data-parallel
-numpy, shared by its LZ4 parse, its LZMA fast parse and the zstd tensor
-encoder.
+numpy, shared by its LZ4 parse, its LZMA fast parse, its DEFLATE parse
+and the zstd tensor encoder. DEFLATE's blocks are rows: the candidates
+of every row come from one sort, and one walk starts at every row.
 
 The counterparts of tpu7z/models/lz4/block.py `_u32_at` (:135),
 `_find_candidates` (:145), `_find_candidates_multi` (:173),
@@ -77,11 +78,12 @@ def modinv_pow2(a: int) -> int:
 
 
 def u32_at(s):
-    """int64 (n - 3,): the little-endian u32 word at every position of the
-    uint8 row `s`."""
+    """int64 (..., n - 3): the little-endian u32 word at every position of
+    the uint8 row `s`, or of each row of a (B, n) tensor."""
     u = s.to(torch.int64)
-    n = u.numel()
-    return u[:n - 3] | (u[1:n - 2] << 8) | (u[2:n - 1] << 16) | (u[3:n] << 24)
+    n = u.shape[-1]
+    return (u[..., :n - 3] | (u[..., 1:n - 2] << 8) | (u[..., 2:n - 1] << 16)
+            | (u[..., 3:n] << 24))
 
 
 def hashes(v, hashlog: int):
@@ -93,7 +95,9 @@ def find_candidates(s, hashlog: int = 16):
     """int64 (n - 3,): cand[p] is the most recent q < p whose hash and
     word equal p's, else -1 (tpu7z's `_find_candidates`): depth 1 of
     `find_candidates_multi`, one stable sort of the hashes (`sort_rows`
-    on the card). A span `lz.sort` when tracing is on."""
+    on the card). Given a (B, n) tensor, the same of each row as (B, n - 3)
+    row-local positions, all rows in that one sort. A span `lz.sort` when
+    tracing is on."""
     with trace.stage("lz.sort", s.device):
         return find_candidates_multi(s, hashlog, 1)[0]
 
@@ -102,22 +106,26 @@ def find_candidates_multi(s, hashlog: int = 16, depth: int = 2):
     """[cand_1, ..., cand_depth], each int64 (n - 3,): cand_d[p] is the
     d-th most recent q < p whose hash equals p's and whose word equals
     p's, else -1. One stable sort of the hashes; deeper candidates are
-    earlier sorted neighbours."""
-    v = u32_at(s)
-    m = v.numel()
+    earlier sorted neighbours. A (B, n) tensor gives each row's, (B, n - 3)
+    each, from one sort of B rows."""
+    rows = s if s.dim() == 2 else s[None]
+    v = u32_at(rows)
+    B, m = v.shape
     if m == 0:
-        return [torch.full((0,), -1, dtype=torch.int64, device=s.device)] * depth
+        empty = torch.full(v.shape, -1, dtype=torch.int64, device=s.device)
+        return [empty if s.dim() == 2 else empty[0]] * depth
     h = hashes(v, hashlog)
-    order = match.sort_order(h[None], hashlog)[0]
-    sh = h[order]
+    order = match.sort_order(h, hashlog)
+    sh = h.gather(1, order)
     out = []
     for d in range(1, depth + 1):
-        cand = torch.full((m,), -1, dtype=torch.int64, device=s.device)
+        cand = torch.full((B, m), -1, dtype=torch.int64, device=s.device)
         if m > d:
-            same = sh[d:] == sh[:-d]
-            cand.scatter_(0, order[d:], torch.where(same, order[:-d], -1))
-        ok = (cand >= 0) & (v[cand.clamp(min=0)] == v)
-        out.append(torch.where(ok, cand, -1))
+            same = sh[:, d:] == sh[:, :-d]
+            cand.scatter_(1, order[:, d:], torch.where(same, order[:, :-d], -1))
+        ok = (cand >= 0) & (v.gather(1, cand.clamp(min=0)) == v)
+        cand = torch.where(ok, cand, -1)
+        out.append(cand if s.dim() == 2 else cand[0])
     return out
 
 
@@ -198,24 +206,30 @@ def match_lengths(s, pos, cand, limit):
         return VERIFIED + torch.minimum(dist + tail[end], cap)
 
 
-def greedy_walk(next_pos, n: int, start: int = 0):
+def greedy_walk(next_pos, n: int, start=0):
     """bool (n + 1,): the positions a greedy cursor visits from `start`
     by following next_pos (a position's successor, int64, one entry for
     each of the first len(next_pos) <= n positions; the others, and any
     successor past n, lead to n): tpu7z's `_greedy_parse` (block.py:321)
-    and `_parse_from` (lzma/encoder.py:237) as a mask. Pointer doubling:
-    each step adds the successors of the positions reached so far and
-    squares the successor map, so after k steps the first 2**k positions
-    of the walk are reached; ceil(log2(n + 1)) steps reach all of it. A
-    span `lz.walk` when tracing is on."""
+    and `_parse_from` (lzma/encoder.py:237) as a mask. `start` may be an
+    ascending tensor of positions, each the start of a walk that runs
+    until it lands on the next start (deflate's blocks, one walk a row).
+    Pointer doubling: each step adds the successors of the positions
+    reached so far and squares the successor map, so after k steps the
+    first 2**k positions of each walk are reached; ceil(log2(span)) steps
+    reach all of them, span being the widest gap from a start to the next
+    or to n + 1 (one host read of the starts). A span `lz.walk` when
+    tracing is on."""
     dev = next_pos.device
+    bounds = torch.as_tensor(start, dtype=torch.int64).flatten().cpu()
+    span = int(torch.diff(bounds, append=torch.tensor([n + 1])).max()) if bounds.numel() else 1
     with trace.stage("lz.walk", dev):
         jump = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
         jump[:next_pos.numel()] = next_pos.clamp(max=n)
         reach = torch.zeros(n + 1, dtype=torch.int32, device=dev)
         reach[start] = 1
         steps = 1
-        while steps < n + 1:
+        while steps < span:
             reach = reach.scatter_reduce(0, jump, reach, "amax")
             jump = jump[jump]
             steps *= 2
