@@ -123,7 +123,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      MTF and Huffman coding), read back by bz2 and by the port (the
      inverse BWT on the card), the first block's BWT equal to its CPU run,
      both ways by span; deflate and bzip2 .7z folders of 2 MiB; the CLI's
-     `a`, `t`, `x` (and `l`) of a .zip, .tar, .gz and .bz2 of 2 MiB.
+     `a`, `t`, `x` (and `l`) of a .zip, .tar, .gz and .bz2 of 2 MiB;
+ 12. Brotli, LZ5, Lizard, .Z and lzip: `sort_rows` at this slice's shapes
+     against its plain version, timed (Brotli's last segment, one row of
+     20 Mi hashes; LZ5's eight 4 MiB rows; Lizard's 256 rows of 128 KiB);
+     the corpus's brotli-mt container at quality 5 on the card by span
+     (`brotli.parse`, `.commands`, `.histograms`, `.header`, `.pack`), its
+     row sorts counted, decoded by the port, the first 4 MiB's stream equal
+     to its CPU run; the corpus's LZ5 frame (one row sort), decoded, its
+     first block equal to the CPU run's; Lizard at 25 over the corpus and
+     at 11, 31 and 41 over 4 MiB (one row sort each), decoded, each level
+     equal to its CPU run on 1 MiB; .Z of 4 MiB (host) and lzip of 2 MiB
+     (its parse on the card), decoded; a 2 MiB .7z of brotli folders,
+     solid and not, read back; the CLI's `a`, `t` and `x` of a .br, .lz5,
+     .liz, .Z and .lz of 2 MiB, equal to the API's.
 The timing helpers are tpu7z_torch/utils/timing.py's, shared with
 bench_torch.py. The line before the last is the per-kernel JSON; the last
 line is the device JSON. Imports nothing of JAX or tpu7z.
@@ -1139,6 +1152,190 @@ def deflate_bzip2_phase(corpus, dev, S, M, card_label):
     return out
 
 
+def first_block(frame_bytes):
+    """The first block's payload of an LZ4-style frame (LZ5, Lizard) with
+    content size: magic, FLG, BD, 8-byte size, header checksum, then the
+    block's u32 header."""
+    size = int.from_bytes(frame_bytes[15:19], "little") & 0x7FFFFFFF
+    return frame_bytes[19:19 + size]
+
+
+def brotli_lz_phase(corpus, dev, S, M, card_label):
+    """Phase 12, Brotli, LZ5, Lizard, .Z and lzip: (a) `sort_rows` at this
+    slice's shapes against its plain version, timed; (b) Brotli's brotli-mt
+    container of the corpus at quality 5 on the card by span, decoded by
+    the port's decoder, the first 4 MiB's stream equal to its CPU run; (c)
+    the corpus's LZ5 frame, round trip, the first block equal to the CPU
+    run; (d) Lizard at 25 over the corpus and at 11, 31 and 41 over 4 MiB,
+    round trips, the card equal to the CPU on 1 MiB; (e) .Z of 4 MiB on
+    the host and lzip of 2 MiB on the card, round trips; (f) a 2 MiB .7z
+    of brotli folders, and the CLI's a, t and x of each new type on 2 MiB.
+    Returns the numbers for the log and the kernels line."""
+    from tpu7z_torch.containers import lzip as LZIP
+    from tpu7z_torch.containers.sevenzip import SevenZipReader, write_archive
+    from tpu7z_torch.models import brotli as BR
+    from tpu7z_torch.models import lizard as LIZ
+    from tpu7z_torch.models import lz5 as LZ5
+    from tpu7z_torch.models import z_lzw as Z
+    from tpu7z_torch.models.lizard import codec as LIZC
+    from tpu7z_torch.ops import _build
+    from tpu7z_torch.ops import hash_chain as HC
+
+    mib = 1 << 20
+    n = len(corpus)
+    out = {"sort": {}}
+
+    # (a) sort_rows at the new shapes: Brotli's last segment (4 MiB behind
+    # 16 MiB of history, one row of hashes at hashlog 16), LZ5's eight
+    # 4 MiB blocks and Lizard's 256 chunks of 128 KiB, each keyed
+    # h << 15 with a position payload, as the matcher sorts them
+    s_all = torch.from_numpy(np.frombuffer(corpus, np.uint8).copy()).to(dev)
+    for name, row, time_it in (("brotli_segment", s_all[n - 20 * mib:][None], True),
+                               ("lz5_rows", s_all.view(8, -1), True),
+                               ("lizard_rows", s_all.view(-1, LIZC.BLOCK_SIZE), True)):
+        h = HC.hashes(HC.u32_at(row), 16)
+        key, bb = M.hash_key(h, 16)
+        pos = torch.arange(h.shape[1], dtype=torch.int32, device=dev).expand(h.shape).contiguous()
+        out["sort"][name] = sort_shape(S, key, (pos,), bb, f"{name}", card_label, time_it)
+        del h, key, pos
+    del s_all
+    out["max_abs_err"] = max(v["max_abs_err"] for v in out["sort"].values())
+
+    # (b) Brotli: the corpus in the brotli-mt container at quality 5
+    S.reset_launches()
+    t = time.perf_counter()
+    br, spans = spans_of(lambda: BR.compress_mt_container(corpus, 5, device=dev))
+    t_br = time.perf_counter() - t
+    launches = S.LAUNCHES["sort_rows"]
+    if launches == 0:
+        raise AssertionError("brotli compress_mt_container(corpus) never launched sort_rows")
+    back, t_unbr = best(lambda: BR.decompress_mt_container(br), 1)
+    if back != corpus:
+        raise AssertionError("the port's brotli decoder does not read the corpus's stream back")
+    head4 = corpus[:4 * mib]
+    if BR.compress(head4, 5, device=dev) != BR.compress(head4, 5, device="cpu"):
+        raise AssertionError("brotli.compress(first 4 MiB) on the card differs from its CPU run")
+    log(f"brotli compress_mt_container(corpus, quality 5) on the card ({card_label}): "
+        f"{len(br)} bytes, ratio {n / len(br):.6f}, {t_br:.3f} s host clock with tracing "
+        f"({n / 1e6 / t_br:.2f} MB/s), {launches} sort_rows launches; spans (s) "
+        f"{ {k: round(v, 4) for k, v in sorted(spans.items())} }; decoded by the port in "
+        f"{t_unbr:.3f} s ({n / 1e6 / t_unbr:.2f} MB/s): equal; the first 4 MiB's stream on the "
+        f"card equals its CPU run")
+    out["brotli"] = {"launches": launches, "seconds": t_br, "spans_s": spans,
+                     "decode_s": t_unbr, "ratio": n / len(br)}
+    del br, back
+
+    # (c) LZ5: the corpus's frame, eight 4 MiB blocks, one row sort
+    S.reset_launches()
+    t = time.perf_counter()
+    l5, l5_spans = spans_of(lambda: LZ5.compress_frame(corpus, device=dev))
+    t_l5 = time.perf_counter() - t
+    l5_launches = S.LAUNCHES["sort_rows"]
+    if l5_launches != 1:
+        raise AssertionError(f"lz5 compress_frame(corpus): {l5_launches} row sorts, expected 1")
+    back, t_unl5 = best(lambda: LZ5.decompress(l5), 1)
+    if back != corpus:
+        raise AssertionError("the port's LZ5 decoder does not read the corpus's frame back")
+    cpu4 = LZ5.compress_frame(head4, device="cpu")
+    if LZ5.compress_frame(head4, device=dev) != cpu4 or first_block(l5) != first_block(cpu4):
+        raise AssertionError("LZ5's first 4 MiB block on the card differs from its CPU run")
+    log(f"lz5 compress_frame(corpus) on the card: {len(l5)} bytes, ratio {n / len(l5):.6f}, "
+        f"{t_l5:.3f} s with tracing ({n / 1e6 / t_l5:.2f} MB/s), {l5_launches} sort_rows "
+        f"launch; spans (s) { {k: round(v, 4) for k, v in sorted(l5_spans.items())} }; decoded "
+        f"in {t_unl5:.3f} s: equal; its first block equals the CPU run's")
+    out["lz5"] = {"launches": l5_launches, "seconds": t_l5, "spans_s": l5_spans,
+                  "decode_s": t_unl5, "ratio": n / len(l5)}
+    del l5, back
+
+    # (d) Lizard at 25 (the CLI's default) over the corpus, 11, 31 and 41
+    # over 4 MiB; the card against the CPU on 1 MiB at each level
+    out["lizard"] = {}
+    for level, data in ((25, corpus), (11, head4), (31, head4), (41, head4)):
+        S.reset_launches()
+        t = time.perf_counter()
+        lz, lz_spans = spans_of(lambda: LIZ.compress_frame(data, level=level, device=dev))
+        t_lz = time.perf_counter() - t
+        lz_launches = S.LAUNCHES["sort_rows"]
+        if lz_launches != 1:
+            raise AssertionError(f"lizard at {level}: {lz_launches} row sorts, expected 1")
+        back, t_unlz = best(lambda: LIZ.decompress(lz), 1)
+        if back != data:
+            raise AssertionError(f"the port's lizard decoder does not read level {level} back")
+        one = corpus[:mib]
+        if LIZ.compress_frame(one, level=level, device=dev) != \
+                LIZ.compress_frame(one, level=level, device="cpu"):
+            raise AssertionError(f"lizard at {level} on the card differs from its CPU run")
+        log(f"lizard compress_frame({len(data) // mib} MiB, level {level}) on the card: "
+            f"{len(lz)} bytes, ratio {len(data) / len(lz):.6f}, {t_lz:.3f} s with tracing, "
+            f"{lz_launches} sort_rows launch; spans (s) "
+            f"{ {k: round(v, 4) for k, v in sorted(lz_spans.items())} }; decoded in "
+            f"{t_unlz:.3f} s: equal; 1 MiB on the card equals the CPU run")
+        out["lizard"][level] = {"launches": lz_launches, "seconds": t_lz, "spans_s": lz_spans,
+                                "decode_s": t_unlz, "ratio": len(data) / len(lz),
+                                "mib": len(data) // mib}
+        del lz, back
+
+    # (e) .Z of 4 MiB on the host, lzip of 2 MiB (its parse on the card)
+    zz, t_z = best(lambda: Z.compress(head4, 16), 1)
+    back, t_unz = best(lambda: Z.decompress(zz), 1)
+    if back != head4:
+        raise AssertionError("the port's .Z decoder does not read the 4 MiB stream back")
+    head = corpus[:2 * mib]
+    S.reset_launches()
+    lz_, lzip_spans = spans_of(lambda: LZIP.compress(head, device=dev))
+    lzip_launches = S.LAUNCHES["sort_rows"]
+    back, t_unlzip = best(lambda: LZIP.decompress(lz_), 1)
+    if back != head or lzip_launches != 1:
+        raise AssertionError(f"lzip of 2 MiB: launches {lzip_launches}, round trip "
+                             f"{back == head}")
+    log(f".Z of 4 MiB (maxbits 16, host): {len(zz)} bytes, ratio {len(head4) / len(zz):.6f}, "
+        f"{t_z:.3f} s, decoded in {t_unz:.3f} s: equal; lzip of 2 MiB on the card: {len(lz_)} "
+        f"bytes, ratio {len(head) / len(lz_):.6f}, {lzip_launches} sort_rows launch, spans (s) "
+        f"{ {k: round(v, 4) for k, v in sorted(lzip_spans.items())} }, decoded in "
+        f"{t_unlzip:.3f} s: equal")
+    out["z"] = {"seconds": t_z, "decode_s": t_unz, "ratio": len(head4) / len(zz)}
+    out["lzip"] = {"launches": lzip_launches, "spans_s": lzip_spans, "decode_s": t_unlzip,
+                   "ratio": len(head) / len(lz_)}
+
+    # (f) a 2 MiB .7z of brotli folders, solid and not, and the CLI
+    files2 = {"a.bin": corpus[:mib], "b.bin": corpus[mib:2 * mib]}
+    for solid in (True, False):
+        t = time.perf_counter()
+        arc = write_archive(files2, method="brotli", level=5, solid=solid, device=dev)
+        t_w = time.perf_counter() - t
+        rd, t_r = best(lambda: SevenZipReader(arc, device=dev).extract_all(), 1)
+        if rd != files2:
+            raise AssertionError("the brotli .7z does not read back")
+        log(f"brotli .7z of 2 MiB ({'solid' if solid else 'two folders'}) on the card: "
+            f"{len(arc)} bytes, written {t_w:.3f} s, read {t_r:.3f} s: equal")
+    work = Path(tempfile.mkdtemp(dir=_build.BUILD))
+    try:
+        src = work / "head.bin"
+        src.write_bytes(head)
+        want = {"br": BR.compress_mt_container(head, 5, device=dev),
+                "lz5": LZ5.compress_frame(head, device=dev),
+                "liz": LIZ.compress_frame(head, level=25, device=dev),
+                "Z": Z.compress(head, 9), "lz": LZIP.compress(head, device=dev)}
+        for ext, made in want.items():
+            arc = str(work / f"head.{ext}")
+            for args in (["a", arc, str(src)], ["t", arc], ["x", arc, f"-o{work / ext}"]):
+                t = time.time()
+                rc, said = cli_run(args, dev)
+                log(f"cli {args[0]} head.{ext}: exit {rc} in {time.time() - t:.1f} s: "
+                    f"{said.strip().splitlines()[-1]!r}")
+                if rc != 0:
+                    raise AssertionError(f"the CLI's {args[0]} of head.{ext} exited {rc}")
+            if Path(arc).read_bytes() != made:
+                raise AssertionError(f"the CLI's head.{ext} differs from the API's")
+            got = next((work / ext).iterdir()).read_bytes()
+            if got != head:
+                raise AssertionError(f"the CLI's head.{ext} does not extract to its input")
+        log("the CLI's .br, .lz5, .liz, .Z and .lz equal the API's and extract to their input")
+    finally:
+        shutil.rmtree(work)
+    return out
+
+
 def aes_passes(corpus, key, iv, dev, card_label):
     """The card's decrypt_cbc over more than one pass of CHUNK_BLOCKS
     blocks: the corpus encrypted natively (held to its Python twin in
@@ -1898,6 +2095,17 @@ def main() -> int:
                                           bzip2=df["bzip2"]["launches"])
     sort_entry["deflate_path"] = df["sort"]["deflate_rows"]
     sort_entry["bzip2_path"] = df["sort"]["bzip2_pass"]
+    # 12. Brotli, LZ5, Lizard, .Z and lzip on the card
+    t = time.time()
+    bl = brotli_lz_phase(corpus, dev, S, M, f"{card_name}, {power_limit}")
+    log(f"phase 12 in {time.time() - t:.1f} s")
+    sort_entry["max_abs_err"] = max(sort_entry["max_abs_err"], bl["max_abs_err"])
+    sort_entry["launches_by_path"].update(brotli=bl["brotli"]["launches"],
+                                          lz5=bl["lz5"]["launches"],
+                                          lizard_25=bl["lizard"][25]["launches"],
+                                          lzip=bl["lzip"]["launches"])
+    for name, shape in bl["sort"].items():
+        sort_entry[name] = shape
 
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -128,15 +128,15 @@ def test_test_reports_a_corrupt_frame(workdir, want, capsys):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["a", "-tbrotli", "out.br", "input.bin"], "-tbrotli: the port writes only .lz4"),
+    (["a", "-tsquashfs", "out.sqfs", "input.bin"], "-tsquashfs: the port writes only .lz4"),
     (["a", "-tlz4", "-m0=zstd", "out.lz4", "input.bin"],
      "-tlz4: the port writes only .lz4, .zst, .xz, .gz and .bz2, each with its own codec"),
-    (["a", "-t7z", "-m0=brotli", "out.7z", "input.bin"],
-     "7z writer: method brotli is not ported to tpu7z_torch yet"),
+    (["a", "-t7z", "-m0=ppmd", "out.7z", "input.bin"],
+     "7z writer: method ppmd is not ported to tpu7z_torch yet"),
     (["u", "out.lz4", "input.bin"], "command 'u' is not served by the port"),
     (["a", "-tlz4", "-mdev", "-v10m", "out.lz4", "input.bin"],
      "switch -v10m is not served by the port"),
-    (["a", "-tlzip", "-mdev", "out.lz", "input.bin"], "-tlzip: the port writes only"),
+    (["a", "-twim", "-mdev", "out.wim", "input.bin"], "-twim: the port writes only"),
     (["l", "out.lz4"], "l: the port lists only .7z, .zip and .tar archives, not lz4"),
     (["a", "-tcab", "out.cab", "input.bin"], "-tcab: the port writes only .lz4"),
 ])
@@ -145,6 +145,29 @@ def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
     err = capsys.readouterr().err
     assert message in err and "use python -m tpu7z.cli" in err
     assert [p.name for p in workdir.iterdir()] == ["input.bin"]
+
+
+@pytest.mark.parametrize("args", [
+    ["a", "-tbrotli", "out.br", "input.bin"],
+    ["a", "-t7z", "-m0=brotli", "out.7z", "input.bin"],
+    ["a", "-tlzip", "-mdev", "out.lz", "input.bin"],
+], ids=["brotli", "7z_brotli", "lzip_mdev"])
+def test_once_refused_now_served_as_tpu7z(workdir, capsys, args):
+    """Requests the port refused before it served brotli and lzip: tpu7z's
+    exit code, output lines and bytes (-mdev: the host stream and a note
+    on stderr, as for every type without a device coder)."""
+    name = args[-2]
+    assert jmain([*args[:-2], "ref_" + name, "input.bin"]) == 0
+    want_out = capsys.readouterr().out.replace("ref_" + name, name)
+    assert main(args, device="cpu") == 0
+    said = capsys.readouterr()
+    assert said.out == want_out
+    assert ("has no device coder" in said.err) == ("-mdev" in args)
+    assert (workdir / name).read_bytes() == (workdir / ("ref_" + name)).read_bytes()
+    assert main(["t", name], device="cpu") == 0
+    assert jmain(["t", name]) == 0
+    port_t, ref_t = capsys.readouterr().out.split("Everything is Ok\n")[:2]
+    assert port_t == ref_t
 
 
 def test_module_run_without_a_card_fails(workdir):
@@ -400,9 +423,15 @@ def _inputs(d):
     ["a", "-t7z", "-mhe", "o.7z", "input.bin"],
     ["a", "-t7z", "-m0=lzma", "o.7z", "input.bin"],
     ["a", "-t7z", "o.7z", "missing.bin"],
+    ["a", "-t7z", "-m0=brotli", "-mx1", "o.7z", "input.bin", "d"],
+    ["a", "-m0=brotli", "o.7z", "input.bin", "d"],
+    ["a", "-t7z", "-m0=brotli", "-mx9", "o.7z", "d"],
+    ["a", "-t7z", "-m0=brotli", "-mx5", "-psecret", "o.7z", "d"],
+    ["a", "-m0=brotli", "-mx9", "-psecret", "-mhe", "o.7z", "d"],
 ], ids=["t7z", "by_name", "unknown_name", "password", "header_encrypted", "zstd_mx3",
         "zstd_x9", "lz4_mx0", "copy_mmt", "bcj2", "mdev_ignored", "stdout",
-        "mhe_without_password", "unknown_method", "missing_input"])
+        "mhe_without_password", "unknown_method", "missing_input", "brotli_mx1",
+        "brotli_mx5", "brotli_mx9", "brotli_password", "brotli_header_encrypted"])
 def test_add_7z_as_tpu7z(tmp_path, monkeypatch, capsysbinary, fixed_iv, args):
     """`a` of a .7z: tpu7z's archive bytes, stdout and exit code, for its
     types, methods, levels, passwords and inputs; errors as tpu7z's."""
@@ -436,13 +465,15 @@ def archive_kinds():
         "password": jw.write_archive(files, password="secret"),
         "header_encrypted": jw.write_archive(files, method="lz4", password="secret",
                                              encrypt_header=True),
+        "brotli_loose": jw.write_archive(files, method="brotli", level=3, solid=False),
         }
 
 
 @pytest.mark.parametrize("verb", [
     ["t"], ["x", "-oout"], ["e"], ["x", "-so"], ["l"], ["l", "-slt"], ["x", "-mmt1", "-oout"]],
     ids=["t", "x", "e", "x_so", "l", "l_slt", "x_mmt1"])
-@pytest.mark.parametrize("kind", ["lzma2", "zstd_loose", "password", "header_encrypted"])
+@pytest.mark.parametrize("kind", ["lzma2", "zstd_loose", "password", "header_encrypted",
+                                  "brotli_loose"])
 def test_read_7z_as_tpu7z(tmp_path, monkeypatch, capsysbinary, archive_kinds, kind, verb):
     """`t`, `x`/`e` (files, or -so) and `l` (-slt) of tpu7z's archives:
     tpu7z's exit codes, stdout and extracted files, with the password and
@@ -626,3 +657,99 @@ def test_corrupt_zip_gz_bz2_exit_2_as_tpu7z(tmp_path, monkeypatch, capsysbinary,
             [verb[0], name, *verb[1:]])
         assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref)
         assert rc == 2 and err.startswith("ERROR: ")
+
+
+# --- .br, .lz5, .liz, .Z and .lz, each against tpu7z.cli ---
+
+@pytest.mark.parametrize("args", [
+    ["a", "o.br", "input.bin"],
+    ["a", "-tbrotli", "-mx9", "o.br", "input.bin"],
+    ["a", "-tbrotli", "-mx1", "-so", "o.br", "input.bin"],
+    ["a", "o.lz5", "input.bin"],
+    ["a", "-tlz5", "-mx9", "-so", "o.lz5", "input.bin"],
+    ["a", "-tlz5", "-mdev", "o.lz5", "input.bin"],
+    ["a", "o.liz", "input.bin"],
+    ["a", "-tlizard", "-mx45", "o.lizard", "input.bin"],
+    ["a", "-tlizard", "-mx3", "o.liz", "input.bin"],
+    ["a", "o.Z", "input.bin"],
+    ["a", "-tz", "-mx16", "o.taz", "input.bin"],
+    ["a", "o.lz", "input.bin"],
+    ["a", "-tlzip", "-so", "o.tlz", "input.bin"],
+    ["a", "o.br", "input.bin", "d"],
+    ["a", "-tz", "o.Z", "d"],
+], ids=["br", "br_mx9", "br_mx1_stdout", "lz5", "lz5_mx9_stdout", "lz5_mdev", "liz",
+        "lizard_mx45", "liz_mx3", "Z", "taz_mx16", "lz", "tlz_stdout", "br_two_inputs",
+        "Z_directory_of_three"])
+def test_add_new_streams_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
+    """`a` of a .br, .lz5, .liz, .Z or .lz: tpu7z's bytes, stdout and exit
+    code at its levels, names and types; errors as tpu7z's."""
+    monkeypatch.delenv("TPU7Z_DEVICE", raising=False)
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, _inputs, args)
+    assert (rc, out, port) == (ref_rc, ref_out, ref)
+    if rc:
+        assert rc == 2 and err == ref_err
+    elif "-mdev" in args:
+        assert "has no device coder" in err
+
+
+@pytest.fixture(scope="module")
+def new_streams():
+    """{name: tpu7z's stream of `_input()`'s first 20000 bytes}: each new
+    type under its extension and, where it has a magic, under none."""
+    from tpu7z.containers import lzip as jlzip
+    from tpu7z.models import brotli as jbr
+    from tpu7z.models import lizard as jliz
+    from tpu7z.models import lz5 as jlz5
+    from tpu7z.models import z_lzw as jz
+    one = _input()[:20000]
+    made = {"br": jbr.compress_mt_container(one, 5), "lz5": jlz5.compress_frame(one),
+            "liz": jliz.compress_frame(one, level=25), "Z": jz.compress(one, 9),
+            "lz": jlzip.compress(one)}
+    out = {f"in.bin.{ext}": v for ext, v in made.items()}
+    out.update({f"sniffed_{ext}": v for ext, v in made.items() if ext != "br"})
+    return one, out
+
+
+@pytest.mark.parametrize("verb", [
+    ["t"], ["x", "-oout"], ["e", "-oout"], ["x", "-so"], ["x", "-mmt1", "-oout"]],
+    ids=["t", "x", "e", "x_so", "x_mmt1"])
+@pytest.mark.parametrize("name", ["in.bin.br", "in.bin.lz5", "in.bin.liz", "in.bin.Z",
+                                  "in.bin.lz", "sniffed_lz5", "sniffed_liz", "sniffed_Z",
+                                  "sniffed_lz"])
+def test_read_new_streams_as_tpu7z(tmp_path, monkeypatch, capsysbinary, new_streams, name,
+                                   verb):
+    """`t` and `x`/`e` (a file, or -so) of tpu7z's .br, .lz5, .liz, .Z and
+    .lz streams, by extension or by magic: tpu7z's exit codes, stdout and
+    files."""
+    one, streams = new_streams
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, lambda d: (d / name).write_bytes(streams[name]),
+        [verb[0], name, *verb[1:]])
+    assert (rc, out, port) == (ref_rc, ref_out, ref)
+    assert rc == 0
+    if verb[0] in ("x", "e") and "-so" not in verb:
+        assert [v for k, v in port.items() if k.startswith("out/")] == [one]
+
+
+@pytest.mark.parametrize("name", ["in.bin.br", "in.bin.lz5", "in.bin.liz", "in.bin.Z",
+                                  "in.bin.lz"])
+def test_corrupt_new_streams_exit_2_as_tpu7z(tmp_path, monkeypatch, capsysbinary,
+                                             new_streams, name):
+    """A byte flipped and the end cut: tpu7z's exit code and message."""
+    bad = bytearray(new_streams[1][name])
+    bad[len(bad) // 2] ^= 0x24
+    bad = bytes(bad[:-3])
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, lambda d: (d / name).write_bytes(bad), ["t", name])
+    assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref)
+    # .Z carries no check: its damage decodes to other bytes
+    assert name.endswith(".Z") or (rc == 2 and err.startswith("ERROR: "))
+
+
+def test_list_of_a_new_stream_is_refused(workdir, capsys, new_streams):
+    """`l` of a single stream is tpu7z's and not the port's (exit 2)."""
+    (workdir / "in.bin.br").write_bytes(new_streams[1]["in.bin.br"])
+    assert main(["l", "in.bin.br"], device="cpu") == 2
+    assert "l: the port lists only .7z, .zip and .tar archives, not brotli" in \
+        capsys.readouterr().err

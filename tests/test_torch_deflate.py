@@ -85,6 +85,16 @@ def test_compress_block_sizes_equal_tpu7z(corpus, block_size):
         assert zlib.decompress(got, -15) == data
 
 
+@pytest.mark.parametrize("block_size", [1, 8, 15])
+def test_blocks_under_16_bytes_equal_tpu7z(corpus, block_size):
+    """Blocks too short to parse: no block gets a match, as in tpu7z
+    (the port once parsed such an input as one block)."""
+    data = corpus[:120]
+    got = tdef.compress(data, block_size=block_size, device="cpu")
+    assert got == jdef.compress(data, block_size=block_size)
+    assert zlib.decompress(got, -15) == data
+
+
 def test_level_is_ignored_as_in_tpu7z(corpus):
     data = corpus[:3000]
     assert {tdef.compress(data, level=lv, device="cpu") for lv in (1, 6, 9)} == \

@@ -3,7 +3,7 @@ registry (`tpu7z_torch.models.registry`) against tpu7z's: `parse_size`,
 `parse_method_spec` and `parse_mt` on a grid of spellings (the value, or
 the error's class name); the registered codecs' names, method IDs and
 levels, their streams, and the trace span a registered codec emits; and
-tpu7z's other codec names refused with a pointer to tpu7z's CLI."""
+an unknown name refused as tpu7z refuses it."""
 
 import pytest
 
@@ -15,9 +15,10 @@ from tpu7z_torch.models import registry as treg  # noqa: E402
 from tpu7z_torch.utils import methodprops as tmp  # noqa: E402
 from tpu7z_torch.utils import trace  # noqa: E402
 
-PORTED = ("copy", "lz4", "zstd", "lzma2", "xz", "bzip2", "deflate", "gzip")
+PORTED = ("copy", "lz4", "zstd", "lzma2", "xz", "bzip2", "deflate", "gzip", "brotli", "lz5",
+          "lizard", "z", "lzip")
 # the codecs whose tensor stages take the device (the tests name the CPU)
-ON_DEVICE = ("bzip2", "deflate", "gzip")
+ON_DEVICE = ("bzip2", "deflate", "gzip", "brotli", "lz5", "lizard", "lzip")
 
 
 def _outcome(fn, *args):
@@ -65,16 +66,8 @@ def test_registered_codecs_equal_tpu7z(name):
 
 
 def test_registry_holds_only_ported_codecs():
-    assert sorted(treg.CODECS) == sorted(PORTED)
-    assert set(treg.UNPORTED) == set(jreg.CODECS) - set(PORTED)
-
-
-@pytest.mark.parametrize("name", sorted(set(jreg.CODECS) - set(PORTED)))
-def test_unported_codecs_name_tpu7z_cli(name):
-    from tpu7z_torch.utils.errors import UnsupportedError
-    jreg.get_codec(name)
-    with pytest.raises(UnsupportedError, match="not ported.*use python -m tpu7z.cli"):
-        treg.get_codec(name)
+    """Every codec of tpu7z's registry is ported (PR 14 the last five)."""
+    assert sorted(treg.CODECS) == sorted(PORTED) == sorted(jreg.CODECS)
 
 
 def test_unknown_codec_raises_as_tpu7z():

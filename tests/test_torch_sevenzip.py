@@ -69,7 +69,8 @@ def _both_read(archive_j, archive_t, files, password=None):
 
 @pytest.mark.parametrize("level", [1, 5, 9])
 @pytest.mark.parametrize("solid", [True, False], ids=["solid", "non_solid"])
-@pytest.mark.parametrize("method", ["copy", "lzma2", "zstd", "lz4", "bcj2", "deflate", "bzip2"])
+@pytest.mark.parametrize("method", ["copy", "lzma2", "zstd", "lz4", "bcj2", "deflate", "bzip2",
+                                    "brotli"])
 def test_write_archive_equals_tpu7z(method, solid, level):
     files = _files(level)
     want = jw.write_archive(files, method=method, level=level, solid=solid)
@@ -79,7 +80,7 @@ def test_write_archive_equals_tpu7z(method, solid, level):
 
 
 @pytest.mark.parametrize("encrypt_header", [False, True], ids=["data", "header_too"])
-@pytest.mark.parametrize("method", ["copy", "lzma2", "zstd", "lz4"])
+@pytest.mark.parametrize("method", ["copy", "lzma2", "zstd", "lz4", "brotli"])
 def test_encrypted_archive_equals_tpu7z(method, encrypt_header):
     files = {"a.txt": _files()["a.txt"][:600], "d/ü.bin": b"\x00\x01" * 40, "e": b""}
     kw = dict(method=method, password="pässwörd", encrypt_header=encrypt_header)
@@ -120,12 +121,25 @@ def test_errors_of_the_writer_as_tpu7z():
         write_archive(files, encrypt_header=True, device="cpu")
     with pytest.raises(ParamError, match="unknown method lzma"):
         write_archive(files, method="lzma", device="cpu")
-    for method in ("brotli", "ppmd"):
-        with pytest.raises(UnsupportedError, match="use python -m tpu7z.cli"):
-            write_archive(files, method=method, device="cpu")
+    with pytest.raises(UnsupportedError, match="use python -m tpu7z.cli"):
+        write_archive(files, method="ppmd", device="cpu")
 
 
-@pytest.mark.parametrize("method", ["brotli", "ppmd"])
+def test_brotli_folder_props_name_the_level_as_tpu7z():
+    """tpu7z writes the level into a brotli folder's props but compresses
+    at quality 9 whatever it is; the port writes the same bytes, and
+    each reader reads them."""
+    files = {"a.txt": b"some text to pack " * 300}
+    want = {lv: jw.write_archive(files, method="brotli", level=lv) for lv in (1, 14)}
+    for lv, archive in want.items():
+        assert write_archive(files, method="brotli", level=lv, device="cpu") == archive
+        assert _read(SevenZipReader, archive) == files
+    # the folders differ in their props only (level 14 is written as 11)
+    assert want[1] != want[14]
+    assert len(want[1]) == len(want[14])
+
+
+@pytest.mark.parametrize("method", ["ppmd"])
 def test_unported_methods_name_tpu7z_cli(method):
     """tpu7z reads them; the port says where to go instead of skipping."""
     from tpu7z_torch.utils.errors import UnsupportedError

@@ -48,6 +48,24 @@ def test_add_writes_tpu7z_archives(workdir, capsys, switches):
         assert (workdir / "out" / "port").read_bytes() == (workdir / "input.bin").read_bytes()
 
 
+@pytest.mark.parametrize("level", [None, "-mx1", "-mx11", "-mx30", "-mx45"])
+def test_lizard_once_refused_now_written_as_tpu7z(workdir, capsys, level):
+    """`a -tlizard` (refused before the port served lizard): tpu7z's
+    bytes and lines, at the default level 5 (lizard's 25) and at levels
+    of each family, over 300000 bytes of the input; `t` and `x` read it."""
+    (workdir / "small.bin").write_bytes((workdir / "input.bin").read_bytes()[:300000])
+    sw = ["-tlizard"] + ([level] if level else [])
+    assert jmain(["a", *sw, "ref.liz", "small.bin"]) == 0
+    want = capsys.readouterr().out.replace("ref.liz", "out.liz")
+    assert main(["a", *sw, "out.liz", "small.bin"], device="cpu") == 0
+    assert capsys.readouterr().out == want
+    assert (workdir / "out.liz").read_bytes() == (workdir / "ref.liz").read_bytes()
+    assert main(["t", "out.liz"]) == 0
+    assert capsys.readouterr().out == "type=lizard files=1\nEverything is Ok\n"
+    assert main(["x", "out.liz", "-oout"]) == 0
+    assert (workdir / "out" / "out.liz").read_bytes() == (workdir / "small.bin").read_bytes()
+
+
 def test_window_log_runs_the_tensor_encoder(workdir):
     """-m0=zstd:wlog=N is tpu7z's route to its numpy encoder, and the
     port's to its tensor encoder; 200 KiB keeps tpu7z's side quick."""
@@ -106,7 +124,7 @@ def test_corrupt_lz4_exits_2(workdir, capsys, kind, message, mt):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["a", "-tlizard", "out.liz", "input.bin"], "-tlizard: the port writes only .lz4"),
+    (["a", "-tcpio", "out.cpio", "input.bin"], "-tcpio: the port writes only .lz4"),
     (["a", "-m0=lzma", "out.xz", "input.bin"],
      "-txz: the port writes only .lz4, .zst, .xz, .gz and .bz2, each with its own codec"),
     (["a", "-tzstd", "-i!*.bin", "out.zst", "input.bin"], "switch -i!*.bin is not served"),

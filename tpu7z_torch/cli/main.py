@@ -1,5 +1,5 @@
 """The port's command line: tpu7z's CLI for .7z, .zip, .tar, .lz4, .zst,
-.xz, .gz and .bz2.
+.xz, .gz, .bz2, .br, .lz5, .liz, .Z and .lz.
 
     python -m tpu7z_torch.cli a [-t7z] [-m0={method}] [-mx{N}] [-p{password}] [-mhe] archive.7z inputs...
     python -m tpu7z_torch.cli a -tzip [-m0={method}] [-mx{N}] archive.zip inputs...
@@ -9,6 +9,7 @@
     python -m tpu7z_torch.cli a -txz archive.xz input
     python -m tpu7z_torch.cli a -tgzip archive.gz input
     python -m tpu7z_torch.cli a -tbzip2 [-mx{N}] archive.bz2 input
+    python -m tpu7z_torch.cli a -tbrotli|-tlz5|-tlizard|-tz|-tlzip [-mx{N}] archive input
     python -m tpu7z_torch.cli t archive [-p{password}] [-mmt{N}]
     python -m tpu7z_torch.cli x archive [-o{dir}] [-p{password}] [-so] [-mmt{N}]
     python -m tpu7z_torch.cli l archive.7z|.zip|.tar [-slt] [-p{password}]
@@ -43,26 +44,36 @@ renamed over its name, or to standard output with -so.
       sort run on the card, zstd's parse too;
   .tar (containers/tar.py): ustar, every input a file;
   -tgzip: DEFLATE on the card in tpu7z's gzip member (the level ignored);
-  -tbzip2: bzip2 at -mx{N} (default 5), its block sort on the card.
+  -tbzip2: bzip2 at -mx{N} (default 5), its block sort on the card;
+  -tbrotli (.br): the brotli-mt container at quality min(N, 11) (default
+      5), its parse, histograms and bit packing on the card;
+  -tlz5 (.lz5): tpu7z's LZ5 frame (the level ignored), its parse on the
+      card; -tlizard (.liz, .lizard): level N, 1-9 meaning 20 + N
+      (default 25), its parse on the card; -tz (.Z, .taz): LZW at
+      max(9, min(N, 16)) bits (default 9), on the host; -tlzip (.lz, .tlz):
+      one lzip member, its LZMA parse on the card.
 The single-stream types take one input; more are refused as in tpu7z.
 The device flag (-mdev, dev in -m0, TPU7Z_DEVICE) selects lz4's device
 coder; with the other types, which have none, it is ignored, as in
-tpu7z, with a note on stderr. -mmt takes tpu7z's grammar
+tpu7z, with a note on stderr (their tensor stages run on the card all
+the same). -mmt takes tpu7z's grammar
 (utils/methodprops.py: parse_mt).
 `t` tests and `x`/`e` extract: a .7z's files (with their unix modes, as
 tpu7z sets them), a .zip's or a .tar's, under -o{dir}, or every file's
-bytes to standard output with -so; a .lz4, .zst or .xz stream's frames
-and blocks in parallel (parallel/decode.py), serially at -mmt1; a .gz
-(host inflate) or .bz2 (its inverse BWT on the card) in one piece. `x`
-names a stream's output as tpu7z does: by default the archive's name with
-each known extension stripped in turn, at -mmt1 with one stripped or
-`.out` added; where that name is the archive itself, `.out` is added
+bytes to standard output with -so; a .lz4 or .zst stream's frames and
+blocks in parallel (parallel/decode.py), serially at -mmt1; a .xz, .gz
+(host inflate), .bz2 (its inverse BWT on the card), .br, .lz5, .liz, .Z
+or .lz in one piece, on the host. `x` names a stream's output as tpu7z
+does: by default the archive's name with each known extension stripped in
+turn, at -mmt1 for .lz4, .zst, .xz, .gz and .bz2 (tpu7z's streamed
+types) with one stripped or `.out` added; where that name is the
+archive itself, `.out` is added
 (tpu7z would overwrite its input). `l` lists a .7z's files, and with -slt their technical lines,
 and a .zip's or a .tar's files with their sizes, as tpu7z does.
-The rest of tpu7z's CLI (other verbs, types, codecs and switches) is
-`python -m tpu7z.cli`'s: asking the port for it exits with 2 and says
-so. The bytes written are tpu7z's. The .7z, .zip, .gz and .bz2 verbs run
-on the card.
+The rest of tpu7z's CLI (other verbs, types, codecs and switches, `l`
+of a single stream) is `python -m tpu7z.cli`'s: asking the port for it
+exits with 2 and says so. The bytes written are tpu7z's. The .7z, .zip,
+.gz, .bz2, .br, .lz5, .liz and .lz verbs run on the card.
 """
 
 from __future__ import annotations
@@ -127,10 +138,14 @@ MAGICS = (
     ("zip", lambda d: d[:4] in (b"PK\x03\x04", b"PK\x05\x06")),
     ("tar", lambda d: len(d) > 262 and d[257:262] == b"ustar"),
 )
-SERVED = ("7z", "zip", "tar", "lz4", "zstd", "xz", "gzip", "bzip2")
+SERVED = ("7z", "zip", "tar", "lz4", "zstd", "xz", "gzip", "bzip2", "brotli", "lz5",
+          "lizard", "z", "lzip")
 ARCHIVES = ("7z", "zip", "tar")      # many files, each under its own name
 # the single-stream types whose codec takes the device
-ON_CARD = ("gzip", "bzip2")
+ON_CARD = ("gzip", "bzip2", "brotli", "lz5", "lizard", "lzip")
+# the types tpu7z's `x` streams at -mmt1 (tpu7z/utils/streamio.py
+# STREAMABLE), naming their output by STRIP_ONE
+STREAMED = ("lz4", "zstd", "gzip", "bzip2", "xz")
 # tpu7z's .zip method names (tpu7z/cli/main.py:336-337); another is deflate
 ZIP_METHODS = {"copy": 0, "deflate": 8, "bzip2": 12, "lzma": 14, "zstd": 93, "xz": 95,
                "ppmd": 98}
@@ -268,8 +283,8 @@ def _add(opts: Options, args, device) -> int:
     dev = asked and atype == "lz4"
     if not dev and atype not in ARCHIVES and (atype not in SERVED or method != atype):
         raise UsageError(f"-t{opts.type or atype}: the port writes only .lz4, .zst, .xz, "
-                         f".gz and .bz2, each with its own codec, and .7z, .zip and .tar; "
-                         f"{ELSEWHERE}")
+                         f".gz and .bz2, each with its own codec, likewise .br, .lz5, .liz, "
+                         f".Z and .lz, and .7z, .zip and .tar; {ELSEWHERE}")
     if asked and not dev:
         print(f"note: -mdev: {atype} has no device coder; the flag is ignored, as in tpu7z",
               file=sys.stderr)
@@ -311,11 +326,11 @@ def _add(opts: Options, args, device) -> int:
     return 0
 
 
-def _output_name(opts: Options, path: str) -> str:
+def _output_name(opts: Options, path: str, atype: str) -> str:
     """The extracted file's name, as tpu7z's `x` gives it (its -mmt1 path
-    streams every type the port reads, except from a `.001` volume)."""
+    streams the STREAMED types, except from a `.001` volume)."""
     name = os.path.basename(path)
-    if opts.threads == 1 and not path.endswith(".001"):
+    if opts.threads == 1 and atype in STREAMED and not path.endswith(".001"):
         ext = next((e for e in STRIP_ONE if name.endswith(e)), None)
         return name[:-len(ext)] if ext else name + ".out"
     for ext in STRIP_ALL:
@@ -389,7 +404,7 @@ def _decode(opts: Options, args, test_only: bool, device) -> int:
     atype = TYPES.get(opts.type, opts.type) if opts.type else _sniff_type(path or "", data)
     if atype not in SERVED:
         raise UsageError(f"{path or 'stdin'}: the port reads .7z, .zip, .tar, .lz4, .zst, .xz, "
-                         f".gz and .bz2 only; {ELSEWHERE}")
+                         f".gz, .bz2, .br, .lz5, .liz, .Z and .lz only; {ELSEWHERE}")
     meta = {}
     if atype == "7z":
         rd = SevenZipReader(data, password=opts.password, device=device)
@@ -399,8 +414,9 @@ def _decode(opts: Options, args, test_only: bool, device) -> int:
         files = read_zip(data, device=device) if atype == "zip" else read_tar(data)
     elif atype in ON_CARD:
         files = {None: get_codec(atype).decompress(data, device=device)}
-    # frames and blocks decode in parallel; -mmt1 forces the serial path
-    elif atype == "xz" or opts.threads == 1:
+    # .zst and .lz4 frames and blocks decode in parallel; -mmt1 forces
+    # the serial path
+    elif atype not in ("zstd", "lz4") or opts.threads == 1:
         files = {None: get_codec(atype).decompress(data)}
     elif atype == "zstd":
         files = {None: decode.decompress_zstd(data, threads=opts.threads)}
@@ -415,7 +431,7 @@ def _decode(opts: Options, args, test_only: bool, device) -> int:
             sys.stdout.buffer.write(content)
         return 0
     if atype not in ARCHIVES:
-        files = {_output_name(opts, path) if path else "stdin": files[None]}
+        files = {_output_name(opts, path, atype) if path else "stdin": files[None]}
     _write_files(opts, files, meta)
     return 0
 
@@ -465,8 +481,8 @@ def _list(opts: Options, args, device) -> int:
 
 def main(argv=None, *, device=None) -> int:
     """Run one command; returns the exit code. The device encoders and the
-    .7z, .zip, .gz and .bz2 verbs run on the CUDA card unless `device`
-    names another (the tests name the CPU)."""
+    .7z, .zip, .gz, .bz2, .br, .lz5, .liz and .lz verbs run on the CUDA
+    card unless `device` names another (the tests name the CPU)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(__doc__)

@@ -69,18 +69,13 @@ M_LZ5 = 0x4F71105
 M_LIZARD = 0x4F71106
 M_FLZMA2 = 0x4F71102  # fork registers flzma2 as alias of 0x21; keep 0x21
 
-# What tpu7z serves and the port has not ported yet (ROADMAP.md), a row a
-# name: (the method ID tpu7z's .7z reader decodes it under, or None;
-# whether tpu7z's .7z writer writes it; whether tpu7z's codec registry
-# has it). The reader, the writer and models/registry.py refuse these
-# names with a message that ends in ELSEWHERE.
+# What tpu7z's .7z container serves and the port has not ported yet
+# (ROADMAP.md), a row a name: (the method ID tpu7z's .7z reader decodes
+# it under, or None; whether tpu7z's .7z writer writes it). The reader
+# and the writer refuse these names with a message that ends in
+# ELSEWHERE.
 UNPORTED = {
-    "brotli": (M_BROTLI, True, True),
-    "ppmd": (M_PPMD, True, False),
-    "lzip": (None, False, True),
-    "z": (None, False, True),
-    "lz5": (None, False, True),
-    "lizard": (None, False, True),
+    "ppmd": (M_PPMD, True),
 }
 ELSEWHERE = "use python -m tpu7z.cli"
 

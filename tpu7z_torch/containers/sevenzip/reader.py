@@ -463,7 +463,7 @@ def decode_folder(folder: Folder, packs: list[bytes],
 
 
 # the methods tpu7z decodes that the port has not ported yet, by ID
-_UNPORTED = {mid: name for name, (mid, _, _) in F.UNPORTED.items() if mid is not None}
+_UNPORTED = {mid: name for name, (mid, _) in F.UNPORTED.items() if mid is not None}
 # branch filters: tensor code on the reader's device, or serial on the host
 _TENSOR_FILTERS = {F.M_ARM64: bcj.bcj_arm64_decode, F.M_ARM: bcj.bcj_arm_decode,
                    F.M_PPC: bcj.bcj_ppc_decode, F.M_SPARC: bcj.bcj_sparc_decode,
@@ -493,6 +493,9 @@ def _run_decoder(coder: Coder, ins: list[bytes], out_size: int,
         return deflate.decompress(data, max_out=out_size, deflate64=True)
     if mid == F.M_LZ4:
         return lz4_frame.decompress(data)
+    if mid == F.M_BROTLI:
+        from ...models import brotli
+        return brotli.decompress_mt_container(data)
     if mid == F.M_DELTA:
         dist = coder.props[0] + 1 if coder.props else 1
         return delta.delta_decode(data, dist, device=device)[:out_size]

@@ -53,6 +53,12 @@ def _encode_stream(method: str, data: bytes, level: int, *, device=None):
         from ...models.registry import get_codec  # the registry imports this package
         codec = get_codec(method)
         return codec.method_id, b"", codec.compress(data, level=level, device=device)
+    if method == "brotli":
+        from ...models import brotli
+        # the props name the level, but tpu7z compresses at brotli's
+        # default quality 9 whatever the level; so does the port
+        return F.M_BROTLI, bytes([1, 2, min(level, 11), 0, 0]), \
+            brotli.compress_mt_container(data, device=device)
     if method in F.UNPORTED and F.UNPORTED[method][1]:
         raise UnsupportedError(f"7z writer: method {method} is not ported to tpu7z_torch "
                                f"yet; {F.ELSEWHERE}")

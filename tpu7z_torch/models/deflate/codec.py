@@ -343,36 +343,11 @@ def _find_matches(s, block_size: int):
     """(take, mlen, off) over the whole uint8 input `s`, each (n,): take[p]
     where the greedy walk of p's block takes the match at p, of length
     mlen[p] and distance off[p]: tpu7z's `_find_matches` of every block at
-    once. Full blocks are the rows of one candidate sort, a short last
-    block (at least MIN_BLOCK bytes) another; shorter blocks get none."""
-    n = s.numel()
-    dev = s.device
-    cand = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    full = n // block_size if block_size >= MIN_BLOCK else 0
-    if full:
-        rows = s[:full * block_size].view(full, block_size)
-        local = hash_chain.find_candidates(rows, HASHLOG)
-        base = torch.arange(full, dtype=torch.int64, device=dev)[:, None] * block_size
-        cand[:full * block_size].view(full, block_size)[:, :block_size - 3] = torch.where(
-            local >= 0, local + base, -1)
-    last = full * block_size
-    if n - last >= MIN_BLOCK:
-        local = hash_chain.find_candidates(s[last:], HASHLOG)
-        cand[last:n - 3] = torch.where(local >= 0, local + last, -1)
-    pos = torch.arange(n, dtype=torch.int64, device=dev)
-    off = pos - cand
-    # a candidate lies in its position's block and before the block's last
-    # 3 bytes, so tpu7z's `pos <= n - 4` holds wherever there is one
-    valid = (cand >= 0) & (off <= MAX_DIST)
-    vidx = torch.nonzero(valid).flatten()
-    block_end = torch.clamp((vidx // block_size + 1) * block_size, max=n)
-    mlen = torch.zeros(n, dtype=torch.int64, device=dev)
-    mlen[vidx] = hash_chain.match_lengths(
-        s, vidx, cand[vidx], torch.clamp(block_end - vidx, max=MAX_MATCH))
-    valid &= mlen >= 3
-    starts = torch.arange(0, n, block_size, dtype=torch.int64, device=dev)
-    reach = hash_chain.greedy_walk(torch.where(valid, pos + mlen, pos + 1), n, starts)
-    return reach[:n] & valid, mlen, off
+    once (`hash_chain.greedy_blocks`; blocks under MIN_BLOCK bytes get no
+    match). No position in a block's last 3 bytes has a candidate, so
+    tpu7z's `pos <= n - 4` holds wherever there is one."""
+    return hash_chain.greedy_blocks(s, block_size, HASHLOG, max_offset=MAX_DIST, tail=4,
+                                    end=0, min_len=3, max_len=MAX_MATCH, min_block=MIN_BLOCK)
 
 
 def _codes(dev, table, values):

@@ -4,10 +4,9 @@ CPP/7zip/ICoder.h).
 
 Maps method names to stream codecs, each a (compress, decompress) pair
 over whole byte streams, with tpu7z's name, 7z method ID and levels.
-bzip2, deflate and gzip take `device=` (the CUDA card unless it names
-the CPU) for their tensor stages. The port registers the codecs it has; `get_codec` of another of tpu7z's
-names raises UnsupportedError and names tpu7z's CLI (ROADMAP.md lists
-them, to be registered as their codecs are ported).
+bzip2, deflate, gzip, brotli, lz5, lizard and lzip take `device=` (the
+CUDA card unless it names the CPU) for their tensor stages; z is host
+code. The port registers every codec tpu7z's registry has.
 """
 
 from __future__ import annotations
@@ -15,11 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from ..containers.sevenzip import format as F
 from ..utils.errors import UnsupportedError
-
-# tpu7z's codecs that the port has not ported yet
-UNPORTED = tuple(name for name, (_, _, codec) in F.UNPORTED.items() if codec)
 
 
 @dataclass(frozen=True)
@@ -101,6 +96,59 @@ def _xz_d(data, **kw):
     return xz.decompress(data)
 
 
+def _brotli_c(data, level=5, device=None, **kw):
+    from . import brotli
+    return brotli.compress_mt_container(data, quality=min(level, 11), device=device)
+
+
+def _brotli_d(data, **kw):
+    from . import brotli
+    return brotli.decompress_mt_container(data)
+
+
+def _lz5_c(data, level=1, device=None, **kw):
+    from . import lz5
+    return lz5.compress_frame(data, device=device)
+
+
+def _lz5_d(data, **kw):
+    from . import lz5
+    return lz5.decompress(data)
+
+
+def _lizard_c(data, level=11, device=None, **kw):
+    from . import lizard
+    if not 10 <= level <= 49:
+        # 7z-style levels 1..9 map into the LIZv1 family
+        level = 20 + max(1, min(level, 9))
+    return lizard.compress_frame(data, level=level, device=device)
+
+
+def _lizard_d(data, **kw):
+    from . import lizard
+    return lizard.decompress(data)
+
+
+def _z_c(data, level=16, **kw):
+    from . import z_lzw
+    return z_lzw.compress(data, maxbits=max(9, min(level, 16)))
+
+
+def _z_d(data, **kw):
+    from . import z_lzw
+    return z_lzw.decompress(data)
+
+
+def _lzip_c(data, level=5, device=None, **kw):
+    from ..containers import lzip
+    return lzip.compress(data, device=device)
+
+
+def _lzip_d(data, **kw):
+    from ..containers import lzip
+    return lzip.decompress(data)
+
+
 def _copy(data, **kw):
     return data
 
@@ -140,13 +188,16 @@ _register("deflate", 0x040108, _deflate_c, _deflate_d, (1, 9))
 # they are not addressable from a 7z folder, as in tpu7z
 _register("xz", 0, _xz_c, _xz_d, (1, 9))
 _register("gzip", 0, _gzip_c, _gzip_d, (1, 9))
+_register("brotli", 0x4F71102, _brotli_c, _brotli_d, (0, 11))
+# lzip is a container-level format like xz and gzip
+_register("lzip", 0, _lzip_c, _lzip_d, (1, 9))
+_register("z", 0x30500, _z_c, _z_d, (9, 16))
+_register("lz5", 0x4F71105, _lz5_c, _lz5_d, (1, 15))
+_register("lizard", 0x4F71106, _lizard_c, _lizard_d, (10, 49))
 
 
 def get_codec(name: str) -> CodecInfo:
-    key = name.lower()
-    if key in CODECS:
-        return CODECS[key]
-    if key in UNPORTED:
-        raise UnsupportedError(f"codec {name!r} is not ported to tpu7z_torch yet; "
-                               f"{F.ELSEWHERE}")
-    raise UnsupportedError(f"unknown codec {name!r}; available: {sorted(CODECS)}")
+    try:
+        return CODECS[name.lower()]
+    except KeyError:
+        raise UnsupportedError(f"unknown codec {name!r}; available: {sorted(CODECS)}")

@@ -65,22 +65,34 @@ def _parse_segment(s, base: int, hashlog: int, max_offset: int,
         return empty, empty, empty
     with _trace.stage("zstd.sort", dev):
         cands = hash_chain.find_candidates_multi(s, hashlog, depth)
+    pos_all = torch.arange(cands[0].numel(), dtype=torch.int64, device=dev)
+    return _best_parse(s, cands, (pos_all >= base) & (pos_all <= n - 8), n - pos_all,
+                       max_offset, lazy, base)
+
+
+def _best_parse(s, cands, in_segment, limit, max_offset: int, lazy: int, start):
+    """The scoring, lazy rule and walk of `_parse_segment` over the first
+    m = len(in_segment) positions of s: each candidate's exact length up
+    to `limit`, the best by price, the lazy deferrals, the greedy walk
+    from `start` (a position, or ascending positions each starting a walk
+    that runs to the next)."""
+    n = s.numel()
+    dev = s.device
     with _trace.stage("zstd.match_lengths", dev):
         phash = hash_chain.build_prefix_hash(s)
-        m = cands[0].numel()
+        m = in_segment.numel()
         pos_all = torch.arange(m, dtype=torch.int64, device=dev)
         best_len = torch.zeros(m, dtype=torch.int64, device=dev)
         best_off = torch.zeros(m, dtype=torch.int64, device=dev)
         best_score = torch.full((m,), _NO_SCORE, dtype=torch.int64, device=dev)
-        in_segment = (pos_all >= base) & (pos_all <= n - 8)
         for cand in cands:
             offset = pos_all - cand
             ok = (cand >= 0) & (offset <= max_offset) & in_segment
             mlen = torch.zeros(m, dtype=torch.int64, device=dev)
             vidx = torch.nonzero(ok).flatten()
             if vidx.numel():
-                p = pos_all[vidx]
-                mlen[vidx] = hash_chain.match_lengths_hashed(phash, p, cand[vidx], n - p)
+                mlen[vidx] = hash_chain.match_lengths_hashed(phash, pos_all[vidx], cand[vidx],
+                                                             limit[vidx])
             score = 8 * mlen - hash_chain.floor_log2(offset.clamp(min=1))
             score = torch.where(mlen >= 4, score, _NO_SCORE)
             better = score > best_score
@@ -100,10 +112,33 @@ def _parse_segment(s, base: int, hashlog: int, max_offset: int,
         next_pos = torch.where(valid, pos_all + best_len, pos_all + 1)
         full_next = torch.full((n,), n, dtype=torch.int64, device=dev)
         full_next[:m] = next_pos
-        visited = hash_chain.greedy_walk(full_next, n, base)
+        visited = hash_chain.greedy_walk(full_next, n, start)
         take = visited[:m] & valid
         sel = torch.nonzero(take).flatten()
     return sel, best_len[sel], best_off[sel]
+
+
+def parse_blocks(s, block_size: int, hashlog: int, depth: int = 2, lazy: int = 0,
+                 min_block: int = 16):
+    """`_parse_segment(block, 0, hashlog, max_offset >= block_size, depth,
+    lazy)` of every `block_size` block of the uint8 tensor `s` at once,
+    no match reaching outside its block: the full blocks are the rows of
+    one candidate sort, a short last block (at least `min_block` bytes)
+    a row of its own, and blocks shorter than that get no matches. The
+    scoring runs over the whole input with each block's limits, and one
+    walk starts at every block. Returns (mpos, mlen, moff), int64 tensors,
+    positions in `s`."""
+    n = s.numel()
+    dev = s.device
+    with _trace.stage("zstd.sort", dev):
+        cands = hash_chain.block_candidates(s, block_size, hashlog, depth,
+                                            max(min_block, 16))
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    block_end = torch.clamp((pos // block_size + 1) * block_size, max=n)
+    starts = torch.arange(0, n, block_size, dtype=torch.int64, device=dev)
+    # a block's positions up to 8 before its end, as `_parse_segment`'s
+    return _best_parse(s, cands, pos <= block_end - 8, block_end - pos, block_size, lazy,
+                       starts)
 
 
 def find_sequences_windowed(s, hashlog: int, window_log: int, depth: int = 2,

@@ -1,9 +1,11 @@
 """Hash chains, exact match lengths and the greedy walk of one byte row,
 as tensor code on the device of its input (the CUDA card, or the CPU when
 the caller names it): the LZ matcher that tpu7z runs as data-parallel
-numpy, shared by its LZ4 parse, its LZMA fast parse, its DEFLATE parse
-and the zstd tensor encoder. DEFLATE's blocks are rows: the candidates
-of every row come from one sort, and one walk starts at every row.
+numpy, shared by its LZ4 parse, its LZMA fast parse, its DEFLATE, LZ5
+and Lizard parses, and the zstd and Brotli tensor encoders. The blocks
+of DEFLATE, LZ5 and Lizard are rows (`block_candidates`,
+`greedy_blocks`): the candidates of every row come from one sort, and
+one walk starts at every row.
 
 The counterparts of tpu7z/models/lz4/block.py `_u32_at` (:135),
 `_find_candidates` (:145), `_find_candidates_multi` (:173),
@@ -234,6 +236,64 @@ def greedy_walk(next_pos, n: int, start=0):
             jump = jump[jump]
             steps *= 2
         return reach > 0
+
+
+def block_candidates(s, block_size: int, hashlog: int, depth: int = 1,
+                     min_block: int = 16):
+    """[cand_1, ..., cand_depth], each int64 (n,): `find_candidates_multi`
+    of every `block_size` block of the uint8 tensor `s` on its own, as
+    positions in `s` (-1: none, and so in each block's last 3 bytes).
+    Full blocks are the rows of one sort (one `sort_rows` launch on the
+    card), a short last block of at least `min_block` bytes a row of its
+    own; shorter blocks get none."""
+    n = s.numel()
+    dev = s.device
+    cands = [torch.full((n,), -1, dtype=torch.int64, device=dev) for _ in range(depth)]
+    full = n // block_size
+    if full and block_size >= min_block:
+        rows = s[:full * block_size].view(full, block_size)
+        base = torch.arange(full, dtype=torch.int64, device=dev)[:, None] * block_size
+        for c, local in zip(cands, find_candidates_multi(rows, hashlog, depth)):
+            c[:full * block_size].view(full, block_size)[:, :block_size - 3] = torch.where(
+                local >= 0, local + base, -1)
+    last = full * block_size
+    if n - last >= max(min_block, 4):
+        for c, local in zip(cands, find_candidates_multi(s[last:], hashlog, depth)):
+            c[last:n - 3] = torch.where(local >= 0, local + last, -1)
+    return cands
+
+
+def greedy_blocks(s, block_size: int, hashlog: int, *, min_offset: int = 1,
+                  max_offset: int = 0xFFFF, tail: int, end: int, min_len: int,
+                  max_len: int | None = None, min_block: int = 16):
+    """(take, mlen, off), each (n,) over the uint8 tensor `s`: the greedy
+    LZ4-style parse of every `block_size` block at once, as tpu7z's LZ5,
+    Lizard and DEFLATE parse each block alone. In a block of nb bytes a
+    position p (block-local) takes its depth-1 candidate at an offset in
+    [min_offset, max_offset] if p <= nb - tail, its length capped at
+    nb - end - p (and at max_len) and at least `min_len`; the walk starts
+    at every block's first position. The candidates are
+    `block_candidates`' (a span `lz.sort`). A candidate lies in its
+    position's block and no position in a block's last 3 bytes has one,
+    so `match_lengths` runs over the whole input."""
+    n = s.numel()
+    dev = s.device
+    with trace.stage("lz.sort", dev):
+        cand = block_candidates(s, block_size, hashlog, 1, min_block)[0]
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    off = pos - cand
+    block_end = torch.clamp((pos // block_size + 1) * block_size, max=n)
+    valid = (cand >= 0) & (off >= min_offset) & (off <= max_offset) & (pos <= block_end - tail)
+    vidx = torch.nonzero(valid).flatten()
+    limit = block_end[vidx] - end - vidx
+    if max_len is not None:
+        limit = torch.clamp(limit, max=max_len)
+    mlen = torch.zeros(n, dtype=torch.int64, device=dev)
+    mlen[vidx] = match_lengths(s, vidx, cand[vidx], limit)
+    valid &= mlen >= min_len
+    starts = torch.arange(0, n, block_size, dtype=torch.int64, device=dev)
+    reach = greedy_walk(torch.where(valid, pos + mlen, pos + 1), n, starts)
+    return reach[:n] & valid, mlen, off
 
 
 def powers(base: int, count: int, device):
