@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit; build the native libraries from
      tpu7z_torch/csrc (the kernels with nvcc, the host libraries with
-     c++: xxh32, CRC, AES, the LZ4, zstd and LZMA codecs), one process per
+     c++: xxh32, XXH3, CRC, AES, the LZ4, zstd and LZMA codecs), one process per
      source, all at once;
   2. each of the four encoder kernels against its plain PyTorch version
      on the card, exact equality, on test patterns, short blocks, the
@@ -136,7 +136,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal to its CPU run on 1 MiB; .Z of 4 MiB (host) and lzip of 2 MiB
      (its parse on the card), decoded; a 2 MiB .7z of brotli folders,
      solid and not, read back; the CLI's `a`, `t` and `x` of a .br, .lz5,
-     .liz, .Z and .lz of 2 MiB, equal to the API's.
+     .liz, .Z and .lz of 2 MiB, equal to the API's;
+ 13. PPMd, the hashers and the verbs: the first 1 MiB of the corpus as a
+     .7z PPMd folder and a .zip method-98 entry, written and read back
+     (host clock), the CLI's `a -t7z -m0=ppmd`, `t` and `x` on 256 KiB;
+     BLAKE3 on the card against its plain version at 11 lengths (0 to
+     1 MiB + 7) and against its CPU run over the corpus, exactly, its time
+     over the corpus (CUDA events, median of 5); the native XXH3's GB/s
+     over the corpus and the empty input's public digests; the CLI's `h`
+     and `t -scrc=*` of 1 MiB (the same 21 digests), and `b -md1m` on the
+     card (36 codec rows, 21 hashers, every round trip checked, its row
+     sorts counted).
 The timing helpers are tpu7z_torch/utils/timing.py's, shared with
 bench_torch.py. The line before the last is the per-kernel JSON; the last
 line is the device JSON. Imports nothing of JAX or tpu7z.
@@ -1336,6 +1346,166 @@ def brotli_lz_phase(corpus, dev, S, M, card_label):
     return out
 
 
+# lengths at which BLAKE3 on the card is held against its plain version:
+# the empty input, short and full blocks, one chunk and its edges, odd
+# chunk counts, and a long input whose last chunk is short
+BLAKE3_LENGTHS = (0, 1, 64, 1023, 1024, 1025, 2048, 3073, 65535, 65537, (1 << 20) + 7)
+# XXH3-64 and XXH3-128 of the empty input (seed 0, the default secret)
+XXH3_EMPTY = (0x2D06800538D394C2, 0x99AA06D3014798D86001C324468D497F)
+PPMD_CODER = b"\x23\x03\x04\x01\x05"   # a .7z coder record: ID 03 04 01, 5 props bytes
+
+
+def ppmd_hash_phase(corpus, dev, S, card_label):
+    """Phase 13, PPMd, the hashers and the verbs: (a) the first 1 MiB of
+    the corpus as a .7z PPMd folder and as a .zip method-98 entry, each
+    written and read back equal (host clock), and the CLI's `a -t7z
+    -m0=ppmd`, `t` and `x` on 256 KiB; (b) BLAKE3 on the card against its
+    plain version at BLAKE3_LENGTHS, the corpus on the card against the
+    same tensor code on the CPU, and the card's time for the corpus (CUDA
+    events, median of 5); (c) the native XXH3 over the corpus and the
+    empty input's digests; (d) `h` and `t -scrc=*` of 1 MiB of text, and
+    `b -md1m`, on the card, its row sorts counted. Returns the numbers
+    for the log and the kernels line."""
+    import hashlib
+    import zlib
+
+    from tpu7z_torch.containers import zip as ZIP
+    from tpu7z_torch.containers.sevenzip import SevenZipReader, write_archive
+    from tpu7z_torch.ops import _build
+    from tpu7z_torch.ops import hashers as H
+    from tpu7z_torch.utils.timing import timed
+
+    mib = 1 << 20
+    head = corpus[:mib]
+    text = corpus[TEXT:TEXT + mib]
+    out = {}
+
+    # (a) PPMd: var.H in a .7z folder, var.I in a .zip entry, on the host
+    for kind, write, read in (
+            ("7z", lambda f: write_archive(f, method="ppmd", device=dev),
+             lambda a: SevenZipReader(a, device=dev).extract_all()),
+            ("zip", lambda f: ZIP.write_zip(f, method=ZIP.M_PPMD, device=dev),
+             lambda a: ZIP.read_zip(a, device=dev))):
+        t = time.perf_counter()
+        arc = write({"head.bin": head})
+        t_w = time.perf_counter() - t
+        t = time.perf_counter()
+        back = read(arc)
+        t_r = time.perf_counter() - t
+        ppmd = PPMD_CODER in arc if kind == "7z" else arc[8:10] == b"\x62\x00"
+        equal = back == {"head.bin": head}
+        if not (equal and ppmd):
+            raise AssertionError(f"the PPMd {kind} of 1 MiB: read back equal {equal}, a PPMd "
+                                 f"{'folder' if kind == '7z' else 'entry'} {ppmd}")
+        log(f"PPMd .{kind} of 1 MiB (host): {len(arc)} bytes, ratio {mib / len(arc):.6f}, written "
+            f"in {t_w:.3f} s ({mib / t_w / 1e6:.3f} MB/s), read in {t_r:.3f} s "
+            f"({mib / t_r / 1e6:.3f} MB/s): equal")
+        out[f"ppmd_{kind}"] = {"bytes": len(arc), "write_s": t_w, "read_s": t_r}
+    work = Path(tempfile.mkdtemp(dir=_build.BUILD))
+    try:
+        src = work / "q.bin"
+        src.write_bytes(corpus[TEXT:TEXT + (256 << 10)])
+        arc = work / "q.7z"
+        for args in (["a", "-t7z", "-m0=ppmd", str(arc), str(src)], ["t", str(arc)],
+                     ["x", str(arc), f"-o{work / 'out'}"]):
+            t = time.time()
+            rc, said = cli_run(args, dev)
+            log(f"cli {args[0]} q.7z (PPMd): exit {rc} in {time.time() - t:.1f} s: "
+                f"{said.strip().splitlines()[-1]!r}")
+            if rc != 0:
+                raise AssertionError(f"the CLI's {args[0]} of the PPMd .7z exited {rc}")
+        if arc.read_bytes() != write_archive({"q.bin": src.read_bytes()}, method="ppmd",
+                                             device=dev):
+            raise AssertionError("the CLI's PPMd .7z differs from the API's")
+        if (work / "out" / "q.bin").read_bytes() != src.read_bytes():
+            raise AssertionError("the CLI's PPMd .7z does not extract to its input")
+        log("the CLI's PPMd .7z of 256 KiB equals the API's and extracts to its input")
+
+        # (b) BLAKE3 on the card: exact against the plain version and the CPU
+        for n in BLAKE3_LENGTHS:
+            piece = corpus[TEXT:TEXT + n]
+            got, want = H.blake3(piece, device=dev), H.blake3_ref(piece)
+            if got != want:
+                raise AssertionError(f"BLAKE3 on the card differs from its plain version at "
+                                     f"{n} bytes")
+        t = time.perf_counter()
+        on_cpu = H.blake3(corpus, device="cpu")
+        t_cpu = time.perf_counter() - t
+        if H.blake3(corpus, device=dev) != on_cpu:
+            raise AssertionError("BLAKE3 of the corpus on the card differs from its CPU run")
+        b3_ms = timed(lambda: H.blake3(corpus, device=dev))
+        log(f"BLAKE3 on the card equals its plain version at {len(BLAKE3_LENGTHS)} lengths "
+            f"({BLAKE3_LENGTHS[0]}-{BLAKE3_LENGTHS[-1]}) and its CPU run over the corpus "
+            f"({t_cpu:.3f} s there); the card over {len(corpus)} bytes {b3_ms:.3f} ms "
+            f"(CUDA events, median of 5; {len(corpus) / b3_ms / 1e3:.1f} MB/s; {card_label})")
+        out["blake3"] = {"lengths": len(BLAKE3_LENGTHS), "ms": b3_ms, "cpu_s": t_cpu}
+
+        # (c) XXH3 from csrc/xxh3.cpp
+        if (H.xxh3_64(b""), H.xxh3_128(b"")) != XXH3_EMPTY:
+            raise AssertionError("XXH3 of the empty input is not the public digest")
+        xxh = {}
+        for name, fn in (("xxh3_64", H.xxh3_64), ("xxh3_128", H.xxh3_128)):
+            times = []
+            for _ in range(5):
+                t = time.perf_counter()
+                fn(corpus)
+                times.append(time.perf_counter() - t)
+            xxh[name] = len(corpus) / statistics.median(times) / 1e9
+        log(f"XXH3 of the empty input: the public digests; native over {len(corpus)} bytes "
+            f"(host clock, median of 5): XXH3-64 {xxh['xxh3_64']:.2f} GB/s, XXH3-128 "
+            f"{xxh['xxh3_128']:.2f} GB/s")
+        out["xxh3_gb_s"] = xxh
+
+        # (d) the verbs: h and t -scrc=* of 1 MiB of text, b at 1 MiB
+        src = work / "m.bin"
+        src.write_bytes(text)
+        t = time.time()
+        rc, said = cli_run(["h", str(src)], dev)
+        t_h = time.time() - t
+        digests = dict(line.split() for line in said.splitlines()[1:])
+        if rc != 0 or len(digests) != 21 or \
+                digests["CRC32"] != f"{zlib.crc32(text):08x}" or \
+                digests["SHA256"] != hashlib.sha256(text).hexdigest() or \
+                digests["BLAKE3"] != H.blake3_ref(text).hex():
+            raise AssertionError(f"`h` of 1 MiB: exit {rc}, {len(digests)} hashers, or a "
+                                 f"digest differs from zlib's, hashlib's or the plain BLAKE3")
+        zst = work / "m.bin.zst"
+        if cli_run(["a", "-tzstd", str(zst), str(src)], dev)[0] != 0:
+            raise AssertionError("`a -tzstd` of 1 MiB failed")
+        t = time.time()
+        rc, said = cli_run(["t", str(zst), "-scrc=*"], dev)
+        t_t = time.time() - t
+        scrc = dict(line.split(" for data: ") for line in said.splitlines()
+                    if " for data: " in line)
+        if rc != 0 or scrc != digests:
+            raise AssertionError(f"`t -scrc=*` of 1 MiB: exit {rc}, its digests equal `h`'s: "
+                                 f"{scrc == digests}")
+        log(f"cli h of 1 MiB: 21 hashers in {t_h:.1f} s, CRC32, SHA256 and BLAKE3 as zlib, "
+            f"hashlib and the plain version; t -scrc=*: the same 21 digests in {t_t:.1f} s")
+        S.reset_launches()
+        t = time.time()
+        rc, said = cli_run(["b", "-md1m"], dev)
+        t_b = time.time() - t
+        launches = S.LAUNCHES["sort_rows"]
+        rows = [line.split() for line in said.splitlines()]
+        codecs = [r for r in rows if len(r) == 6 and r[1].isdigit()]
+        hashers = [r for r in rows if len(r) == 2 and r[0] != "hasher"]
+        bad = [" ".join(r) for r in rows if "FAILED" in r or "skip:" in r]
+        if rc != 0 or len(codecs) != 36 or len(hashers) != 21 or bad or launches == 0:
+            raise AssertionError(f"`b -md1m`: exit {rc}, {len(codecs)} codec rows, "
+                                 f"{len(hashers)} hasher rows, failures {bad}, {launches} "
+                                 f"sort_rows launches")
+        log(f"cli b -md1m in {t_b:.1f} s: 36 codec rows and 21 hashers, every round trip "
+            f"checked, {launches} sort_rows launches; its lines:")
+        for line in said.splitlines():
+            log(f"  {line}")
+        out["cli"] = {"h_s": t_h, "t_scrc_s": t_t, "b_s": t_b}
+        out["b"] = {"sort_rows_launches": launches, "rows": codecs + hashers}
+    finally:
+        shutil.rmtree(work)
+    return out
+
+
 def aes_passes(corpus, key, iv, dev, card_label):
     """The card's decrypt_cbc over more than one pass of CHUNK_BLOCKS
     blocks: the corpus encrypted natively (held to its Python twin in
@@ -2106,6 +2276,12 @@ def main() -> int:
                                           lzip=bl["lzip"]["launches"])
     for name, shape in bl["sort"].items():
         sort_entry[name] = shape
+    # 13. PPMd, the hashers (BLAKE3 on the card, the native XXH3) and the
+    # verbs h, t -scrc and b
+    t = time.time()
+    ph = ppmd_hash_phase(corpus, dev, S, f"{card_name}, {power_limit}")
+    log(f"phase 13 in {time.time() - t:.1f} s")
+    sort_entry["launches_by_path"].update(cli_b=ph["b"]["sort_rows_launches"])
 
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -131,14 +131,11 @@ def test_test_reports_a_corrupt_frame(workdir, want, capsys):
     (["a", "-tsquashfs", "out.sqfs", "input.bin"], "-tsquashfs: the port writes only .lz4"),
     (["a", "-tlz4", "-m0=zstd", "out.lz4", "input.bin"],
      "-tlz4: the port writes only .lz4, .zst, .xz, .gz and .bz2, each with its own codec"),
-    (["a", "-t7z", "-m0=ppmd", "out.7z", "input.bin"],
-     "7z writer: method ppmd is not ported to tpu7z_torch yet"),
-    (["u", "out.lz4", "input.bin"], "command 'u' is not served by the port"),
     (["a", "-tlz4", "-mdev", "-v10m", "out.lz4", "input.bin"],
      "switch -v10m is not served by the port"),
     (["a", "-twim", "-mdev", "out.wim", "input.bin"], "-twim: the port writes only"),
-    (["l", "out.lz4"], "l: the port lists only .7z, .zip and .tar archives, not lz4"),
     (["a", "-tcab", "out.cab", "input.bin"], "-tcab: the port writes only .lz4"),
+    (["l", "out.cab"], "l: the port lists only .7z, .zip, .tar and the streams it reads, not cab"),
 ])
 def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
     assert main(args, device="cpu") == 2
@@ -151,11 +148,13 @@ def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
     ["a", "-tbrotli", "out.br", "input.bin"],
     ["a", "-t7z", "-m0=brotli", "out.7z", "input.bin"],
     ["a", "-tlzip", "-mdev", "out.lz", "input.bin"],
-], ids=["brotli", "7z_brotli", "lzip_mdev"])
+    ["a", "-t7z", "-m0=ppmd", "out.7z", "input.bin"],
+    ["a", "-tzip", "-m0=ppmd", "out.zip", "input.bin"],
+], ids=["brotli", "7z_brotli", "lzip_mdev", "7z_ppmd", "zip_ppmd"])
 def test_once_refused_now_served_as_tpu7z(workdir, capsys, args):
-    """Requests the port refused before it served brotli and lzip: tpu7z's
-    exit code, output lines and bytes (-mdev: the host stream and a note
-    on stderr, as for every type without a device coder)."""
+    """Requests the port refused before it served brotli, lzip and PPMd:
+    tpu7z's exit code, output lines and bytes (-mdev: the host stream and
+    a note on stderr, as for every type without a device coder)."""
     name = args[-2]
     assert jmain([*args[:-2], "ref_" + name, "input.bin"]) == 0
     want_out = capsys.readouterr().out.replace("ref_" + name, name)
@@ -593,13 +592,6 @@ def test_add_zip_tar_gz_bz2_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
         assert rc == 2 and err == ref_err
 
 
-def test_zip_ppmd_names_tpu7z_cli(workdir, capsys):
-    assert main(["a", "-tzip", "-m0=ppmd", "o.zip", "input.bin"], device="cpu") == 2
-    err = capsys.readouterr().err
-    assert "ppmd is not ported" in err and "use python -m tpu7z.cli" in err
-    assert not (workdir / "o.zip").exists()
-
-
 @pytest.fixture(scope="module")
 def stream_kinds():
     """(files, {name: tpu7z's archive of them}) for each type and method."""
@@ -628,16 +620,13 @@ def stream_kinds():
 def test_read_zip_tar_gz_bz2_as_tpu7z(tmp_path, monkeypatch, capsysbinary, stream_kinds,
                                       name, verb):
     """`t`, `x`/`e` (files, or -so) and `l` of tpu7z's archives, by
-    extension or by magic: tpu7z's exit codes, stdout and files. `l` of
-    a .gz or .bz2 is not served (exit 2)."""
+    extension or by magic: tpu7z's exit codes, stdout and files (`l` of
+    a .gz or .bz2 too)."""
     files, archives = stream_kinds
     (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
         tmp_path, monkeypatch, capsysbinary, lambda d: (d / name).write_bytes(archives[name]),
         [verb[0], name, *verb[1:]])
     single = name.endswith((".gz", ".bz2")) or name in ("gzipped", "bzipped")
-    if verb == ["l"] and single:
-        assert ref_rc == 0 and rc == 2 and "use python -m tpu7z.cli" in err
-        return
     assert (rc, out, port) == (ref_rc, ref_out, ref)
     assert rc == 0
     if verb[0] in ("x", "e") and "-so" not in verb and not single:
@@ -747,9 +736,160 @@ def test_corrupt_new_streams_exit_2_as_tpu7z(tmp_path, monkeypatch, capsysbinary
     assert name.endswith(".Z") or (rc == 2 and err.startswith("ERROR: "))
 
 
-def test_list_of_a_new_stream_is_refused(workdir, capsys, new_streams):
-    """`l` of a single stream is tpu7z's and not the port's (exit 2)."""
-    (workdir / "in.bin.br").write_bytes(new_streams[1]["in.bin.br"])
-    assert main(["l", "in.bin.br"], device="cpu") == 2
-    assert "l: the port lists only .7z, .zip and .tar archives, not brotli" in \
-        capsys.readouterr().err
+@pytest.mark.parametrize("name", ["in.bin.br", "in.bin.lz5", "in.bin.liz", "in.bin.Z",
+                                  "in.bin.lz", "sniffed_lz5", "sniffed_Z"])
+def test_list_of_new_streams_as_tpu7z(tmp_path, monkeypatch, capsysbinary, new_streams, name):
+    """`l` of a .br, .lz5, .liz, .Z or .lz stream, by extension or by
+    magic: tpu7z's lines (the one file, its size and stripped name)."""
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary,
+        lambda d: (d / name).write_bytes(new_streams[1][name]), ["l", name])
+    assert (rc, out, port) == (ref_rc, ref_out, ref)
+    assert rc == 0 and out.decode().splitlines()[-1].split()[0] == str(len(new_streams[0]))
+
+
+# --- `l` of the first stream types, `u`, `h`, `i`, `b` and `t -scrc`, each
+# against tpu7z.cli ---
+
+@pytest.mark.parametrize("name", ["out.lz4", "out.zst", "out.xz", "sniffed_zst"])
+def test_list_of_lz4_zst_xz_as_tpu7z(tmp_path, monkeypatch, capsysbinary, name):
+    from tpu7z_torch.containers import xz
+    from tpu7z_torch.models.lz4 import frame as tframe
+    from tpu7z_torch.models.zstd import frame as zframe
+    data = _input()[:30000]
+    made = {"out.lz4": tframe.compress_frame(data), "out.zst": zframe.compress(data),
+            "out.xz": xz.compress(data), "sniffed_zst": zframe.compress(data)}[name]
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, lambda d: (d / name).write_bytes(made), ["l", name])
+    assert (rc, out, port) == (ref_rc, ref_out, ref)
+    assert rc == 0 and out.decode().splitlines()[-1].split() == ["30000", "-", name.split(".")[0]]
+
+
+def _old_archives(d):
+    """`_inputs`, and beside them archives tpu7z wrote of other files:
+    an `input.bin` of other bytes and a file the inputs do not name."""
+    from tpu7z.containers import tar as jtar
+    from tpu7z.containers import zip as jzip
+    from tpu7z.containers.sevenzip import write_archive as jwrite
+    from tpu7z.models import deflate as jdef
+    _inputs(d)
+    old = {"input.bin": b"older input " * 50, "kept.txt": b"kept through the update"}
+    (d / "old.7z").write_bytes(jwrite(old))
+    (d / "old.zip").write_bytes(jzip.write_zip(old))
+    (d / "old.tar").write_bytes(jtar.write_tar(old))
+    (d / "input.bin.gz").write_bytes(jdef.gzip_compress(old["input.bin"]))
+    (d / "other.gz").write_bytes(jdef.gzip_compress(old["kept.txt"]))
+
+
+@pytest.mark.parametrize("args", [
+    ["u", "old.7z", "input.bin", "d"],
+    ["u", "old.7z"],
+    ["u", "-m0=zstd", "-mx3", "old.7z", "input.bin"],
+    ["u", "-psecret", "old.7z", "d"],
+    ["u", "old.zip", "input.bin"],
+    ["u", "-tzip", "-m0=ppmd", "old.zip", "d"],
+    ["u", "old.tar", "d"],
+    ["u", "input.bin.gz", "input.bin"],
+    ["u", "other.gz", "input.bin"],
+    ["u", "new.7z", "input.bin"],
+    ["u", "new.7z"],
+    ["u"],
+    ["u", "-so", "old.7z", "input.bin"],
+], ids=["7z_add_and_replace", "7z_rewrite", "7z_zstd", "7z_password", "zip", "zip_ppmd",
+        "tar", "gz_same_name", "gz_other_name", "absent_archive", "absent_no_inputs",
+        "no_archive", "stdout_ignores_old"])
+def test_update_as_tpu7z(tmp_path, monkeypatch, capsysbinary, fixed_iv, args):
+    """`u`: the inputs overlaid on the archive's files and the archive
+    rewritten by the same writer, as tpu7z's `cmd_add(update=True)`:
+    its bytes, lines and exit codes (a single stream takes its stripped
+    name, so an input of another name makes two and is refused)."""
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, _old_archives, args)
+    assert (rc, out, port) == (ref_rc, ref_out, ref)
+    if rc:
+        assert rc == 2 and err == ref_err
+
+
+@pytest.mark.parametrize("args", [
+    ["h", "input.bin", "d/x.bin", "d/empty"], ["h"], ["h", "missing.bin"]],
+    ids=["three_files", "none", "missing"])
+def test_hash_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
+    """`h`: every hasher's digest of each file, sorted by name, tpu7z's
+    lines and exit codes (BLAKE3's tensor code here on the CPU)."""
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, _inputs, args)
+    assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref)
+    assert len(out.splitlines()) == 22 * len(args[1:]) * (rc == 0)
+
+
+def test_info_as_tpu7z(workdir, capsys):
+    """`i`: tpu7z's codecs (method IDs, levels) and hashers; the banner is
+    the port's and the Formats line names the types the port serves (both
+    recorded as not reproduced)."""
+    assert jmain(["i"]) == 0
+    ref = capsys.readouterr().out.splitlines()
+    assert main(["i"], device="cpu") == 0
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(ref) and got[1:-1] == ref[1:-1]
+    assert got[0] == "tpu7z_torch (the PyTorch/CUDA port of tpu7z)"
+    assert got[-1] == "Formats: 7z zstd lz4 lz5 lizard brotli xz bzip2 gzip tar zip Z lzip"
+    assert sum("  levels " in line for line in got) == 13
+
+
+def _bench_lines(out: bytes):
+    """`b`'s lines without its rates: a codec row as (method, level,
+    ratio), a hasher row as its name; headers, skip and failure lines as
+    they are."""
+    lines = []
+    for line in out.decode().splitlines():
+        f = line.split()
+        if len(f) == 6 and f[1].isdigit():
+            lines.append((f[0], f[1], f[4]))
+        elif len(f) == 2 and f[0] != "hasher":
+            lines.append(f[0])
+        else:
+            lines.append(line)
+    return lines
+
+
+@pytest.mark.parametrize("args", [
+    ["b", "-md64k"], ["b", "-md64k", "lz4"], ["b", "-md64k", "-mx3", "ZSTD"],
+    ["b", "-md16k", "sha256"], ["b", "-md16k", "blake3"], ["b", "-md4k", "nosuch"]],
+    ids=["all", "lz4", "zstd_mx3", "sha256", "blake3", "unknown"])
+def test_bench_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
+    """`b`: every codec at its levels (or the one named, or one level
+    under -mx) over make_corpus(-md), each round trip checked, then the
+    hashers: tpu7z's lines, ratios and exit codes, not its rates."""
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, lambda d: None, args)
+    assert (rc, err, port) == (ref_rc, ref_err, ref)
+    assert _bench_lines(out) == _bench_lines(ref_out)
+    if args[-1] == "-md64k":
+        lines = _bench_lines(out)
+        assert len([x for x in lines if isinstance(x, tuple)]) == 36
+        assert len([x for x in lines if isinstance(x, str) and x and x[0].isupper()]) == 21
+        assert not any("FAILED" in str(x) or "skip" in str(x) for x in lines)
+
+
+@pytest.fixture(scope="module")
+def scrc_archives():
+    from tpu7z.containers import zip as jzip
+    from tpu7z.containers.sevenzip import write_archive as jwrite
+    from tpu7z.models import deflate as jdef
+    files = {"a.txt": _input()[:3000], "b.bin": _input()[-1500:], "e": b""}
+    return {"s.7z": jwrite(files), "s.zip": jzip.write_zip(files),
+            "s.gz": jdef.gzip_compress(files["a.txt"])}
+
+
+@pytest.mark.parametrize("switch", ["-scrc", "-scrc=*", "-scrcSHA256", "-scrc=xxh3-64",
+                                    "-scrc=blake2sp", "-scrc=nosuch"])
+@pytest.mark.parametrize("name", ["s.7z", "s.zip", "s.gz"])
+def test_test_scrc_as_tpu7z(tmp_path, monkeypatch, capsysbinary, scrc_archives, name, switch):
+    """`t -scrc[=NAME|*]`: after the type line, each file's hash under
+    the name given (CRC32 by default, every hasher for `*`); a name
+    neither it nor its upper case names prints nothing, as in tpu7z."""
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary,
+        lambda d: (d / name).write_bytes(scrc_archives[name]), ["t", name, switch])
+    assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref)
+    assert rc == 0 and out.decode().endswith("Everything is Ok\n")

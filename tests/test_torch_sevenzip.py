@@ -70,7 +70,7 @@ def _both_read(archive_j, archive_t, files, password=None):
 @pytest.mark.parametrize("level", [1, 5, 9])
 @pytest.mark.parametrize("solid", [True, False], ids=["solid", "non_solid"])
 @pytest.mark.parametrize("method", ["copy", "lzma2", "zstd", "lz4", "bcj2", "deflate", "bzip2",
-                                    "brotli"])
+                                    "brotli", "ppmd"])
 def test_write_archive_equals_tpu7z(method, solid, level):
     files = _files(level)
     want = jw.write_archive(files, method=method, level=level, solid=solid)
@@ -80,7 +80,7 @@ def test_write_archive_equals_tpu7z(method, solid, level):
 
 
 @pytest.mark.parametrize("encrypt_header", [False, True], ids=["data", "header_too"])
-@pytest.mark.parametrize("method", ["copy", "lzma2", "zstd", "lz4", "brotli"])
+@pytest.mark.parametrize("method", ["copy", "lzma2", "zstd", "lz4", "brotli", "ppmd"])
 def test_encrypted_archive_equals_tpu7z(method, encrypt_header):
     files = {"a.txt": _files()["a.txt"][:600], "d/ü.bin": b"\x00\x01" * 40, "e": b""}
     kw = dict(method=method, password="pässwörd", encrypt_header=encrypt_header)
@@ -109,7 +109,7 @@ def test_edge_file_sets_equal_tpu7z(files):
 
 def test_errors_of_the_writer_as_tpu7z():
     from tpu7z.utils.errors import ParamError as JParam
-    from tpu7z_torch.utils.errors import ParamError, UnsupportedError
+    from tpu7z_torch.utils.errors import ParamError
     files = {"a": b"abc"}
     with pytest.raises(JParam):
         jw.write_archive(files, method="bcj2", password="pw")
@@ -121,8 +121,6 @@ def test_errors_of_the_writer_as_tpu7z():
         write_archive(files, encrypt_header=True, device="cpu")
     with pytest.raises(ParamError, match="unknown method lzma"):
         write_archive(files, method="lzma", device="cpu")
-    with pytest.raises(UnsupportedError, match="use python -m tpu7z.cli"):
-        write_archive(files, method="ppmd", device="cpu")
 
 
 def test_brotli_folder_props_name_the_level_as_tpu7z():
@@ -139,15 +137,47 @@ def test_brotli_folder_props_name_the_level_as_tpu7z():
     assert len(want[1]) == len(want[14])
 
 
-@pytest.mark.parametrize("method", ["ppmd"])
-def test_unported_methods_name_tpu7z_cli(method):
-    """tpu7z reads them; the port says where to go instead of skipping."""
-    from tpu7z_torch.utils.errors import UnsupportedError
-    files = {"a.txt": b"some text to pack " * 30}
-    archive = jw.write_archive(files, method=method, level=5)
-    assert _read(JReader, archive) == files
-    with pytest.raises(UnsupportedError, match=f"{method} is not ported.*python -m tpu7z.cli"):
-        _read(SevenZipReader, archive)
+@pytest.mark.parametrize("order,mem", [(2, 1 << 20), (6, 1 << 24), (16, 1 << 20), (64, 1 << 24)],
+                         ids=["o2_1m", "o6_16m", "o16_1m", "o64_16m"])
+def test_ppmd_folders_of_any_props_read_as_tpu7z(order, mem):
+    """tpu7z's writer takes order 6 and 16 MiB; both readers take a
+    PPMd folder of any order and memory size from its props."""
+    import zlib
+    from tpu7z.models.ppmd import ppmd7 as jppmd7
+    files = {"a.txt": b"some text to pack " * 30 + _data(order, 700)}
+    packed, props = jppmd7.compress(files["a.txt"], order=order, mem=mem)
+    arc = _archive([_single(JF.M_PPMD, props, packed, len(files["a.txt"]),
+                            zlib.crc32(files["a.txt"]))], [packed], ["a.txt"], files)
+    assert _read(JReader, arc) == files
+    assert _read(SevenZipReader, arc) == files
+
+
+@pytest.mark.parametrize("solid", [True, False], ids=["solid", "non_solid"])
+def test_update_of_ppmd_archives_equals_tpu7z(solid):
+    files = _files(4)
+    old = jw.write_archive(files, method="ppmd", solid=solid)
+    add, delete = {"x86.bin": b"replaced content " * 10, "new/n.txt": b"a new file"}, ["a.txt"]
+    for method in ("ppmd", "lzma2"):
+        want = jw.update_archive(old, add=add, delete=delete, method=method)
+        got = tw.update_archive(old, add=add, delete=delete, method=method, device="cpu")
+        assert got == want
+        expect = {k: v for k, v in files.items() if k not in delete}
+        expect.update(add)
+        _both_read(want, got, expect)
+
+
+@pytest.mark.parametrize("at", ["first", "quarter", "middle"])
+def test_corrupt_ppmd_folder_raises_tpu7z_class(at):
+    """A flipped byte in a PPMd stream: the file's CRC fails in both
+    readers alike (the coder's last bytes may not change the output, so
+    none is flipped there)."""
+    files = {"a.txt": _files()["a.txt"]}
+    arc = bytearray(jw.write_archive(files, method="ppmd"))
+    packed_len = int.from_bytes(arc[12:20], "little")
+    pos = 32 + {"first": 0, "quarter": packed_len // 4, "middle": packed_len // 2}[at]
+    arc[pos] ^= 0x5A
+    ref, port = _error_classes(bytes(arc))
+    assert ref == port and ref is not None
 
 
 # --- update_archive ---------------------------------------------------------

@@ -30,7 +30,7 @@ from tpu7z_torch.utils.corpus import make_corpus  # noqa: E402
 
 TEXT = 696156            # the corpus's first byte past its sparse chunk
 # the methods the port writes, and those zipfile reads
-WRITTEN = {"store": 0, "deflate": 8, "bzip2": 12, "lzma": 14, "zstd": 93, "xz": 95}
+WRITTEN = {"store": 0, "deflate": 8, "bzip2": 12, "lzma": 14, "zstd": 93, "xz": 95, "ppmd": 98}
 ZIPFILE_READS = (0, 8, 12, 14)
 
 
@@ -142,15 +142,19 @@ def test_read_zip_reads_a_deflate64_entry_as_tpu7z(corpus):
     assert tzip.read_zip(arc, device="cpu") == jzip.read_zip(arc) == {"d64.bin": content}
 
 
-def test_ppmd_is_refused_with_tpu7z_cli():
-    from tpu7z_torch.utils.errors import UnsupportedError
-    data = {"a.txt": b"some text to pack " * 40}
-    with pytest.raises(UnsupportedError, match="ppmd is not ported.*use python -m tpu7z.cli"):
-        tzip.write_zip(data, method=98, device="cpu")
+def test_ppmd_entries_read_as_tpu7z(monkeypatch):
+    """Method-98 entries of other orders, memory sizes and restore
+    methods than the writer's (order 8, 16 MiB, restart), made by
+    tpu7z's writer with its PPMd var.I so set: both readers give the
+    same files."""
+    from tpu7z.models.ppmd import ppmd8 as jppmd8
+    data = {"a.txt": b"some text to pack " * 40, "b.bin": bytes(range(256)) * 3}
+    usual = jzip.write_zip(data, method=98)
+    plain, params = jppmd8.compress, iter([(2, 1, 1), (16, 3, 0)])
+    monkeypatch.setattr(jppmd8, "compress", lambda d: plain(d, *next(params)))
     archive = jzip.write_zip(data, method=98)
-    assert jzip.read_zip(archive) == data
-    with pytest.raises(UnsupportedError, match="ppmd is not ported.*use python -m tpu7z.cli"):
-        tzip.read_zip(archive, device="cpu")
+    assert archive != usual
+    assert tzip.read_zip(archive, device="cpu") == jzip.read_zip(archive) == data
 
 
 def _zip_corruptions(archive):
@@ -162,7 +166,7 @@ def _zip_corruptions(archive):
     return cases
 
 
-@pytest.mark.parametrize("method", ["store", "deflate", "bzip2"])
+@pytest.mark.parametrize("method", ["store", "deflate", "bzip2", "ppmd"])
 def test_corrupt_zip_raises_as_tpu7z(files, method):
     archive = jzip.write_zip(files, method=WRITTEN[method])
     for bad in _zip_corruptions(archive):

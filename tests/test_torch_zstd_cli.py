@@ -66,6 +66,23 @@ def test_lizard_once_refused_now_written_as_tpu7z(workdir, capsys, level):
     assert (workdir / "out" / "out.liz").read_bytes() == (workdir / "small.bin").read_bytes()
 
 
+def test_ppmd_once_refused_now_written_as_tpu7z(workdir, capsys):
+    """`a -t7z -mdev -m0=ppmd` (refused before the port served PPMd):
+    tpu7z's bytes and line over 60000 bytes of the input, the device
+    flag ignored with a note; `t` and `x` read it."""
+    (workdir / "small.bin").write_bytes((workdir / "input.bin").read_bytes()[:60000])
+    assert jmain(["a", "-t7z", "-mdev", "-m0=ppmd", "ref.7z", "small.bin"]) == 0
+    want = capsys.readouterr().out.replace("ref.7z", "out.7z")
+    assert main(["a", "-t7z", "-mdev", "-m0=ppmd", "out.7z", "small.bin"], device="cpu") == 0
+    said = capsys.readouterr()
+    assert said.out == want and "has no device coder" in said.err
+    assert (workdir / "out.7z").read_bytes() == (workdir / "ref.7z").read_bytes()
+    assert main(["t", "out.7z"], device="cpu") == 0
+    assert capsys.readouterr().out == "type=7z files=1\nEverything is Ok\n"
+    assert main(["x", "out.7z", "-oout"], device="cpu") == 0
+    assert (workdir / "out" / "small.bin").read_bytes() == (workdir / "small.bin").read_bytes()
+
+
 def test_window_log_runs_the_tensor_encoder(workdir):
     """-m0=zstd:wlog=N is tpu7z's route to its numpy encoder, and the
     port's to its tensor encoder; 200 KiB keeps tpu7z's side quick."""
@@ -128,8 +145,6 @@ def test_corrupt_lz4_exits_2(workdir, capsys, kind, message, mt):
     (["a", "-m0=lzma", "out.xz", "input.bin"],
      "-txz: the port writes only .lz4, .zst, .xz, .gz and .bz2, each with its own codec"),
     (["a", "-tzstd", "-i!*.bin", "out.zst", "input.bin"], "switch -i!*.bin is not served"),
-    (["a", "-t7z", "-mdev", "-m0=ppmd", "out.7z", "input.bin"],
-     "7z writer: method ppmd is not ported to tpu7z_torch yet"),
 ])
 def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
     assert main(args, device="cpu") == 2

@@ -10,9 +10,13 @@
     python -m tpu7z_torch.cli a -tgzip archive.gz input
     python -m tpu7z_torch.cli a -tbzip2 [-mx{N}] archive.bz2 input
     python -m tpu7z_torch.cli a -tbrotli|-tlz5|-tlizard|-tz|-tlzip [-mx{N}] archive input
-    python -m tpu7z_torch.cli t archive [-p{password}] [-mmt{N}]
+    python -m tpu7z_torch.cli u archive inputs...      (any type `a` writes)
+    python -m tpu7z_torch.cli t archive [-p{password}] [-mmt{N}] [-scrc[={hasher}|*]]
     python -m tpu7z_torch.cli x archive [-o{dir}] [-p{password}] [-so] [-mmt{N}]
-    python -m tpu7z_torch.cli l archive.7z|.zip|.tar [-slt] [-p{password}]
+    python -m tpu7z_torch.cli l archive [-slt] [-p{password}]
+    python -m tpu7z_torch.cli h files...
+    python -m tpu7z_torch.cli i
+    python -m tpu7z_torch.cli b [codec|hasher] [-md{size}] [-mx{N}]
 
 The archive's type comes from -t, else from its name (tpu7z's table of
 extensions), else, for `t`, `x` and `l`, from its first bytes; a name
@@ -22,9 +26,10 @@ input directory under its path relative to the working directory, or
 standard input with -si. The archive is written to a temporary file and
 renamed over its name, or to standard output with -so.
   .7z (containers/sevenzip): every input, one solid folder; -m0= copy,
-      lzma2 (the default), zstd, lz4 or bcj2; -mx{N} (default 5, as is
-      -mx0); -p{password} encrypts each folder with AES-256, -mhe the
-      header too; -md{size}, -y and -r are read and ignored, as there.
+      lzma2 (the default), zstd, lz4, bcj2, deflate, bzip2, brotli or
+      ppmd; -mx{N} (default 5, as is -mx0); -p{password} encrypts each
+      folder with AES-256, -mhe the header too; -md{size}, -y and -r are
+      read and ignored, as there.
       zstd folders run the tensor encoder, whose parse runs on the card;
   -tlz4 -mdev (also -m0=lz4:dev, or TPU7Z_DEVICE=1 in the environment):
       the device block encoder (parallel/sharded.py:
@@ -39,9 +44,9 @@ renamed over its name, or to standard output with -so.
       (containers/xz.py); the level is ignored, as tpu7z ignores it;
   .zip (containers/zip.py): every input an entry, -m0= copy, deflate (the
       default; also any name tpu7z's table does not know), bzip2, lzma,
-      zstd or xz at -mx{N} (default 6), an entry stored where its codec
-      does not shrink it; deflate's parse and bit packing and bzip2's block
-      sort run on the card, zstd's parse too;
+      zstd, xz or ppmd at -mx{N} (default 6), an entry stored where its
+      codec does not shrink it; deflate's parse and bit packing and
+      bzip2's block sort run on the card, zstd's parse too;
   .tar (containers/tar.py): ustar, every input a file;
   -tgzip: DEFLATE on the card in tpu7z's gzip member (the level ignored);
   -tbzip2: bzip2 at -mx{N} (default 5), its block sort on the card;
@@ -51,7 +56,9 @@ renamed over its name, or to standard output with -so.
       card; -tlizard (.liz, .lizard): level N, 1-9 meaning 20 + N
       (default 25), its parse on the card; -tz (.Z, .taz): LZW at
       max(9, min(N, 16)) bits (default 9), on the host; -tlzip (.lz, .tlz):
-      one lzip member, its LZMA parse on the card.
+      one lzip member, its LZMA parse on the card;
+  -m0=ppmd: .7z folders of PPMd var.H (order 6, 16 MiB whatever the
+      level) and .zip entries of var.I (method 98), on the host.
 The single-stream types take one input; more are refused as in tpu7z.
 The device flag (-mdev, dev in -m0, TPU7Z_DEVICE) selects lz4's device
 coder; with the other types, which have none, it is ignored, as in
@@ -68,18 +75,29 @@ does: by default the archive's name with each known extension stripped in
 turn, at -mmt1 for .lz4, .zst, .xz, .gz and .bz2 (tpu7z's streamed
 types) with one stripped or `.out` added; where that name is the
 archive itself, `.out` is added
-(tpu7z would overwrite its input). `l` lists a .7z's files, and with -slt their technical lines,
-and a .zip's or a .tar's files with their sizes, as tpu7z does.
-The rest of tpu7z's CLI (other verbs, types, codecs and switches, `l`
-of a single stream) is `python -m tpu7z.cli`'s: asking the port for it
-exits with 2 and says so. The bytes written are tpu7z's. The .7z, .zip,
-.gz, .bz2, .br, .lz5, .liz and .lz verbs run on the card.
+(tpu7z would overwrite its input). `t -scrc` also prints the content's
+hash: CRC32, the hasher named, or with `*` every one (ops/hashers.py).
+`u` overlays the inputs on the archive's files, if it exists, and
+rewrites it as `a` would. `l` lists a .7z's files, and with -slt their
+technical lines, and any other archive's or stream's files with their
+sizes, as tpu7z does. `h` prints every hasher's digest of each file; `i`
+the codecs, hashers and types (the port's own banner); `b` benchmarks
+every codec at its low, mid and high levels (-mx: one level) over
+make_corpus(-md size, 4 MiB by default), each round trip checked, then
+every hasher: tpu7z's lines, with this machine's rates.
+The rest of tpu7z's CLI (other types and switches: -i!, -x!, -v, -bb,
+-bd, the streaming extract) is `python -m tpu7z.cli`'s: asking the port
+for it exits with 2 and says so. The bytes written are tpu7z's. The
+.7z, .zip, .gz, .bz2, .br, .lz5, .liz and .lz verbs, BLAKE3 and `b`'s
+tensor stages run on the card.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import sys
+import time
 from dataclasses import dataclass, field
 
 from ..containers import xz
@@ -87,14 +105,18 @@ from ..containers.sevenzip import SevenZipReader, write_archive
 from ..containers.tar import read_tar, write_tar
 from ..containers.zip import read_zip, write_zip
 from ..models.lz4 import frame
-from ..models.registry import get_codec
+from ..models.registry import CODECS, get_codec
 from ..models.zstd import frame as zframe
+from ..ops.hashers import HASHERS
+from ..ops.hashing import crc32_native
 from ..parallel import decode
 from ..parallel.sharded import shard_compress_lz4_device
+from ..utils.corpus import make_corpus
 from ..utils.errors import TpuzError
 from ..utils.methodprops import parse_method_spec, parse_mt, parse_size
 
 ELSEWHERE = "use python -m tpu7z.cli"
+BANNER = "tpu7z_torch (the PyTorch/CUDA port of tpu7z)"
 # tpu7z's type names by extension (tpu7z/cli/main.py:25-43)
 EXT_TYPES = {
     ".7z": "7z", ".zst": "zstd", ".lz4": "lz4", ".xz": "xz",
@@ -141,6 +163,10 @@ MAGICS = (
 SERVED = ("7z", "zip", "tar", "lz4", "zstd", "xz", "gzip", "bzip2", "brotli", "lz5",
           "lizard", "z", "lzip")
 ARCHIVES = ("7z", "zip", "tar")      # many files, each under its own name
+# `i`'s Formats line: tpu7z's (tpu7z/cli/main.py:689) with only the types
+# the port serves, and lzip, which it serves too
+FORMATS = ("7z", "zstd", "lz4", "lz5", "lizard", "brotli", "xz", "bzip2", "gzip", "tar", "zip",
+           "Z", "lzip")
 # the single-stream types whose codec takes the device
 ON_CARD = ("gzip", "bzip2", "brotli", "lz5", "lizard", "lzip")
 # the types tpu7z's `x` streams at -mmt1 (tpu7z/utils/streamio.py
@@ -179,6 +205,7 @@ class Options:
     stdin: bool = False
     stdout: bool = False
     slt: bool = False
+    scrc: str | None = None
     outdir: str = "."
 
 
@@ -195,7 +222,8 @@ def _parse(args) -> tuple[Options, list[str]]:
         elif a.startswith("-mx"):
             opts.level = int(a[3:].lstrip("="))
         elif a.startswith("-md") and len(a) > 3 and a[3].isdigit():
-            parse_size(a[3:])   # read and ignored, as tpu7z's `a` ignores it
+            # `b`'s buffer size, as tpu7z's; `a` and `u` ignore it, as there
+            opts.props["d"] = parse_size(a[3:])
         elif a.startswith("-mhe"):
             opts.encrypt_header = a[4:] in ("", "=on", "on")
         elif a.startswith("-mdev"):
@@ -212,6 +240,8 @@ def _parse(args) -> tuple[Options, list[str]]:
             opts.stdout = True
         elif a == "-slt":
             opts.slt = True
+        elif a.startswith("-scrc"):
+            opts.scrc = a[5:].lstrip("=") or "CRC32"
         elif a in ("-y", "-r", "-r0"):
             pass
         elif a.startswith("-"):
@@ -244,7 +274,7 @@ def _sniff_type(path: str, data: bytes | None = None) -> str:
 def _read_input(opts: Options, inputs) -> dict[str, bytes]:
     """{name: bytes} as tpu7z's `cmd_add` collects them: each input file
     under its base name, each file under an input directory under its
-    path relative to the working directory; none is refused as there."""
+    path relative to the working directory."""
     if opts.stdin:
         if inputs:
             raise UsageError("a -si: no input files with -si")
@@ -260,8 +290,6 @@ def _read_input(opts: Options, inputs) -> dict[str, bytes]:
         else:
             with open(path, "rb") as f:
                 files[os.path.basename(path)] = f.read()
-    if not files:
-        raise TpuzError("a: no input files")
     return files
 
 
@@ -271,9 +299,13 @@ def _one_stream(files: dict, atype: str) -> bytes:
     return next(iter(files.values()))
 
 
-def _add(opts: Options, args, device) -> int:
+def _add(opts: Options, args, device, update: bool = False) -> int:
+    """`a`, and `u` (update=True): as tpu7z's `cmd_add`, `u` overlays the
+    new files on those of the archive it names, if there is one, and
+    rewrites it with the same writer (tpu7z/cli/main.py:297-325)."""
+    verb = "u" if update else "a"
     if not args:
-        raise UsageError("a: missing archive name")
+        raise UsageError(f"{verb}: missing archive name")
     archive, inputs = args[0], args[1:]
     atype = TYPES.get(opts.type, opts.type) if opts.type else _sniff_type(archive)
     method = TYPES.get(opts.method, opts.method) if opts.method else atype
@@ -289,6 +321,10 @@ def _add(opts: Options, args, device) -> int:
         print(f"note: -mdev: {atype} has no device coder; the flag is ignored, as in tpu7z",
               file=sys.stderr)
     files = _read_input(opts, inputs)
+    if update and os.path.exists(archive) and not opts.stdout:
+        files = {**_open(opts, archive, device)[1], **files}
+    if not files:
+        raise TpuzError(f"{verb}: no input files")
     if atype == "7z":
         out = write_archive(files, method=opts.method or "lzma2",
                             level=opts.level or DEFAULT_LEVEL, password=opts.password,
@@ -333,12 +369,20 @@ def _output_name(opts: Options, path: str, atype: str) -> str:
     if opts.threads == 1 and atype in STREAMED and not path.endswith(".001"):
         ext = next((e for e in STRIP_ONE if name.endswith(e)), None)
         return name[:-len(ext)] if ext else name + ".out"
-    for ext in STRIP_ALL:
-        if name.endswith(ext):
-            name = name[:-len(ext)]
+    name = _stream_name(path)
     dst = os.path.join(opts.outdir, name)
     if os.path.exists(dst) and os.path.samefile(dst, path):
         name += ".out"   # tpu7z would write over the archive it reads
+    return name
+
+
+def _stream_name(path: str | None) -> str:
+    """A single stream's file name, as tpu7z's `_open_archive` gives it:
+    the base name with each known extension stripped in turn."""
+    name = os.path.basename(path or "stdin")
+    for ext in STRIP_ALL:
+        if name.endswith(ext):
+            name = name[:-len(ext)]
     return name
 
 
@@ -392,11 +436,11 @@ def _write_files(opts: Options, files: dict, meta: dict):
         print(f"extracted {name} ({len(content)} bytes)")
 
 
-def _decode(opts: Options, args, test_only: bool, device) -> int:
-    if not args and not opts.stdin:
-        raise UsageError("missing archive")
-    path = None if opts.stdin else args[0]
-    if path is None:
+def _open(opts: Options, path: str | None, device) -> tuple[str, dict, dict]:
+    """(type, {name: bytes}, metadata) of the archive at `path` (or on
+    standard input with -si), as tpu7z's `_open_archive` reads it: a
+    single stream's one file under `_stream_name`."""
+    if opts.stdin:
         data = sys.stdin.buffer.read()
     else:
         with open(path, "rb") as f:
@@ -405,25 +449,39 @@ def _decode(opts: Options, args, test_only: bool, device) -> int:
     if atype not in SERVED:
         raise UsageError(f"{path or 'stdin'}: the port reads .7z, .zip, .tar, .lz4, .zst, .xz, "
                          f".gz, .bz2, .br, .lz5, .liz, .Z and .lz only; {ELSEWHERE}")
-    meta = {}
     if atype == "7z":
         rd = SevenZipReader(data, password=opts.password, device=device)
-        files = rd.extract_all()
-        meta = _metadata(rd)
-    elif atype in ("zip", "tar"):
-        files = read_zip(data, device=device) if atype == "zip" else read_tar(data)
-    elif atype in ON_CARD:
-        files = {None: get_codec(atype).decompress(data, device=device)}
+        return atype, rd.extract_all(), _metadata(rd)
+    if atype in ("zip", "tar"):
+        return atype, read_zip(data, device=device) if atype == "zip" else read_tar(data), {}
+    if atype in ON_CARD:
+        content = get_codec(atype).decompress(data, device=device)
     # .zst and .lz4 frames and blocks decode in parallel; -mmt1 forces
     # the serial path
     elif atype not in ("zstd", "lz4") or opts.threads == 1:
-        files = {None: get_codec(atype).decompress(data)}
+        content = get_codec(atype).decompress(data)
     elif atype == "zstd":
-        files = {None: decode.decompress_zstd(data, threads=opts.threads)}
+        content = decode.decompress_zstd(data, threads=opts.threads)
     else:
-        files = {None: decode.decompress_lz4(data, threads=opts.threads)}
+        content = decode.decompress_lz4(data, threads=opts.threads)
+    return atype, {_stream_name(path): content}, {}
+
+
+def _decode(opts: Options, args, test_only: bool, device) -> int:
+    if not args and not opts.stdin:
+        raise UsageError("missing archive")
+    path = None if opts.stdin else args[0]
+    atype, files, meta = _open(opts, path, device)
     if test_only:
         print(f"type={atype} files={len(files)}")
+        if opts.scrc:
+            # tpu7z's -scrc (:573-581): a name it does not know prints nothing
+            names = [opts.scrc] if opts.scrc != "*" else sorted(HASHERS)
+            for content in files.values():
+                for hn in names:
+                    fn = HASHERS.get(hn.upper()) or HASHERS.get(hn)
+                    if fn:
+                        print(f"{hn} for data: {fn(content, device=device)}")
         print("Everything is Ok")
         return 0
     if opts.stdout:
@@ -431,22 +489,24 @@ def _decode(opts: Options, args, test_only: bool, device) -> int:
             sys.stdout.buffer.write(content)
         return 0
     if atype not in ARCHIVES:
-        files = {_output_name(opts, path, atype) if path else "stdin": files[None]}
+        files = {_output_name(opts, path, atype) if path else "stdin":
+                 next(iter(files.values()))}
     _write_files(opts, files, meta)
     return 0
 
 
 def _list(opts: Options, args, device) -> int:
-    """`l` of a .7z, a .zip or a .tar, as tpu7z's `cmd_list`
-    (tpu7z/cli/main.py:637-667)."""
+    """`l`, as tpu7z's `cmd_list` (tpu7z/cli/main.py:637-667): a .7z's
+    files (with -slt their technical lines), and any other archive's or
+    stream's files with their sizes."""
     if not args:
         raise UsageError("l: missing archive")
     path = args[0]
 
     def served(atype):
-        if atype not in ARCHIVES:
-            raise UsageError(f"l: the port lists only .7z, .zip and .tar archives, not "
-                             f"{atype}; {ELSEWHERE}")
+        if TYPES.get(atype, atype) not in SERVED:
+            raise UsageError(f"l: the port lists only .7z, .zip, .tar and the streams it "
+                             f"reads, not {atype}; {ELSEWHERE}")
         return atype
 
     # a name that says another type is refused before it is read
@@ -457,8 +517,7 @@ def _list(opts: Options, args, device) -> int:
     print(f"Listing archive: {path}")
     print(f"Type = {atype}")
     if atype != "7z":
-        files = read_zip(data, device=device) if atype == "zip" else read_tar(data)
-        for name, content in files.items():
+        for name, content in _open(opts, path, device)[1].items():
             print(f"{len(content):>10}  {'-':>8}  {name}")
         return 0
     rd = SevenZipReader(data, password=opts.password, device=device)
@@ -479,10 +538,100 @@ def _list(opts: Options, args, device) -> int:
     return 0
 
 
+def _hash(opts: Options, args, device) -> int:
+    """`h`, as tpu7z's `cmd_hash` (:669-676): every hasher of each file."""
+    for path in args:
+        with open(path, "rb") as f:
+            data = f.read()
+        print(f"-- {path} ({len(data)} bytes)")
+        for name in sorted(HASHERS):
+            print(f"{name:11s} {HASHERS[name](data, device=device)}")
+    return 0
+
+
+def _info(opts: Options, args, device) -> int:
+    """`i`, as tpu7z's `cmd_info` (:679-691), but for the port's banner
+    and its Formats line, which names the types the port serves."""
+    print(BANNER)
+    print("\nCodecs:")
+    for name, ci in sorted(CODECS.items()):
+        print(f"  {ci.method_id:>8X}  {name}  levels {ci.levels[0]}-{ci.levels[1]}")
+    print("\nHashers:")
+    for name in sorted(HASHERS):
+        print(f"  {name}")
+    print("\nFormats: " + " ".join(FORMATS))
+    return 0
+
+
+def _bench(opts: Options, args, device) -> int:
+    """`b [codec|hasher]`, as tpu7z's `cmd_bench` (:694-760): every codec
+    of the registry (or the one named) at its low, mid and high levels
+    (the one level -mx names), over make_corpus(size) (-md{size}, 4 MiB
+    by default), each round trip checked by bytes and CRC, then every
+    hasher. The codecs' and BLAKE3's tensor stages run on `device`;
+    zstd runs its host encoder, as tpu7z's `b` does. The rates are this
+    machine's; the layout and the skip and failure lines are tpu7z's."""
+    size = int(opts.props.get("d", 4 << 20) or (4 << 20))
+    data = make_corpus(size)
+    only = args[0].lower() if args else None
+
+    def levels_for(info):
+        lo, hi = info.levels
+        if opts.level:
+            return [max(lo, min(opts.level, hi))]
+        return sorted({lo, (lo + hi) // 2, hi})
+
+    names = [n for n in CODECS if n != "copy" and (only is None or n == only)]
+    if names:
+        print(f"{'method':12s} {'lvl':>3} {'enc MB/s':>9} {'dec MB/s':>9} "
+              f"{'ratio':>6} {'rating':>7}")
+    for name in sorted(names):
+        codec = CODECS[name]
+        # any keyword sends zstd to its tensor encoder; tpu7z's `b` runs
+        # the host one
+        kw = {} if name == "zstd" else {"device": device}
+        for lvl in levels_for(codec):
+            try:
+                t0 = time.time()
+                c = codec.compress(data, level=lvl, **kw)
+                te = max(time.time() - t0, 1e-9)
+                t0 = time.time()
+                out = codec.decompress(c, device=device)
+                td = max(time.time() - t0, 1e-9)
+            except (TpuzError, TypeError, ValueError) as e:
+                print(f"{name:12s} {lvl:>3} skip: {e}")
+                continue
+            if out != data or crc32_native(out) != crc32_native(data):
+                print(f"{name:12s} {lvl:>3} ROUND-TRIP FAILED")
+                continue
+            ratio = size / len(c)
+            rating = size / te / 1e6 * max(math.log2(ratio), 0.1)
+            print(f"{name:12s} {lvl:>3} {size / te / 1e6:>9.1f} "
+                  f"{size / td / 1e6:>9.1f} {ratio:>6.2f} {rating:>7.0f}")
+    hnames = [h for h in sorted(HASHERS) if only is None or h.lower() == only]
+    if only is not None and not names and not hnames:
+        raise TpuzError(f"b: unknown codec/hasher {only!r}")
+    if hnames and (only is None or not names):
+        print(f"\n{'hasher':12s} {'MB/s':>9}")
+        for h in hnames:
+            t0 = time.time()
+            HASHERS[h](data, device=device)
+            dt = max(time.time() - t0, 1e-9)
+            print(f"{h:12s} {size / dt / 1e6:>9.1f}")
+    return 0
+
+
+VERBS = {"a": _add, "u": lambda o, r, d: _add(o, r, d, update=True),
+         "x": lambda o, r, d: _decode(o, r, False, d), "e": lambda o, r, d: _decode(o, r, False, d),
+         "t": lambda o, r, d: _decode(o, r, True, d), "l": _list, "h": _hash, "i": _info,
+         "b": _bench}
+
+
 def main(argv=None, *, device=None) -> int:
-    """Run one command; returns the exit code. The device encoders and the
-    .7z, .zip, .gz, .bz2, .br, .lz5, .liz and .lz verbs run on the CUDA
-    card unless `device` names another (the tests name the CPU)."""
+    """Run one command; returns the exit code. The device encoders, the
+    .7z, .zip, .gz, .bz2, .br, .lz5, .liz and .lz verbs, BLAKE3 and `b`'s
+    tensor stages run on the CUDA card unless `device` names another
+    (the tests name the CPU)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(__doc__)
@@ -490,15 +639,9 @@ def main(argv=None, *, device=None) -> int:
     cmd = argv[0]
     try:
         opts, rest = _parse(argv[1:])
-        if cmd == "a":
-            return _add(opts, rest, device)
-        if cmd in ("x", "e"):
-            return _decode(opts, rest, False, device)
-        if cmd == "t":
-            return _decode(opts, rest, True, device)
-        if cmd == "l":
-            return _list(opts, rest, device)
-        raise UsageError(f"command {cmd!r} is not served by the port; {ELSEWHERE}")
+        if cmd not in VERBS:
+            raise UsageError(f"command {cmd!r} is not served by the port; {ELSEWHERE}")
+        return VERBS[cmd](opts, rest, device)
     except (UsageError, TpuzError, OSError) as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 2

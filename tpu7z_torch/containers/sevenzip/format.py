@@ -69,16 +69,6 @@ M_LZ5 = 0x4F71105
 M_LIZARD = 0x4F71106
 M_FLZMA2 = 0x4F71102  # fork registers flzma2 as alias of 0x21; keep 0x21
 
-# What tpu7z's .7z container serves and the port has not ported yet
-# (ROADMAP.md), a row a name: (the method ID tpu7z's .7z reader decodes
-# it under, or None; whether tpu7z's .7z writer writes it). The reader
-# and the writer refuse these names with a message that ends in
-# ELSEWHERE.
-UNPORTED = {
-    "ppmd": (M_PPMD, True),
-}
-ELSEWHERE = "use python -m tpu7z.cli"
-
 
 class ByteReader:
     __slots__ = ("data", "pos")

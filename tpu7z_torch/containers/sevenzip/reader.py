@@ -11,8 +11,7 @@ Folders are independent -> the parallel decode unit (MtDec analog).
 The reader runs on the device the caller names (the CUDA card unless
 `device` names the CPU): AES decryption, the whole-array branch
 filters and bzip2's inverse BWT are tensor code there; the other codecs,
-x86, IA-64, RISC-V and BCJ2 run on the host. Methods the port has not ported yet raise
-UnsupportedError and name tpu7z's CLI.
+x86, IA-64, RISC-V, BCJ2 and PPMd run on the host.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from ...device import resolve_device
-from ...models import deflate
+from ...models import deflate, ppmd
 from ...models.filters import bcj, delta
 from ...models.lz4 import frame as lz4_frame
 from ...models.lzma import decoder as lzma1
@@ -462,8 +461,6 @@ def decode_folder(folder: Folder, packs: list[bytes],
     return get_out(folder.final_out_index())
 
 
-# the methods tpu7z decodes that the port has not ported yet, by ID
-_UNPORTED = {mid: name for name, (mid, _) in F.UNPORTED.items() if mid is not None}
 # branch filters: tensor code on the reader's device, or serial on the host
 _TENSOR_FILTERS = {F.M_ARM64: bcj.bcj_arm64_decode, F.M_ARM: bcj.bcj_arm_decode,
                    F.M_PPC: bcj.bcj_ppc_decode, F.M_SPARC: bcj.bcj_sparc_decode,
@@ -509,9 +506,8 @@ def _run_decoder(coder: Coder, ins: list[bytes], out_size: int,
         if password is None:
             raise UnsupportedError("7z: archive is encrypted (no password)")
         return aes_decrypt(data, coder.props, password, device=device)[:out_size]
-    if mid in _UNPORTED:
-        raise UnsupportedError(f"7z: method {_UNPORTED[mid]} is not ported to tpu7z_torch "
-                               f"yet; {F.ELSEWHERE}")
+    if mid == F.M_PPMD:
+        return ppmd.decompress(data, coder.props, out_size)
     raise UnsupportedError(f"7z: unsupported method {mid:#x}")
 
 

@@ -15,9 +15,8 @@ stream)], with the final output being coder0's.
 (the CUDA card unless `device` names the CPU): zstd folders through the
 tensor encoder, whose parse runs there (models/zstd/compressor.py),
 deflate folders with their parse and bit packing there, bzip2 folders
-with their block sort there; LZMA2, LZ4, BCJ2 and AES encryption
-(csrc/aes.cpp) on the host. Methods
-the port has not ported yet raise UnsupportedError and name tpu7z's CLI.
+with their block sort there; LZMA2, LZ4, BCJ2, PPMd and AES encryption
+(csrc/aes.cpp) on the host.
 """
 
 from __future__ import annotations
@@ -25,12 +24,13 @@ from __future__ import annotations
 import os
 
 from ...device import resolve_device
+from ...models import ppmd
 from ...models.filters.bcj2 import bcj2_encode
 from ...models.lz4 import frame as lz4_frame
 from ...models.lzma import lzma2
 from ...models.zstd import compressor
 from ...ops.hashing import crc32_native as _crc32
-from ...utils.errors import ParamError, UnsupportedError
+from ...utils.errors import ParamError
 from . import aes7z
 from . import format as F
 from .format import ByteWriter
@@ -59,9 +59,10 @@ def _encode_stream(method: str, data: bytes, level: int, *, device=None):
         # default quality 9 whatever the level; so does the port
         return F.M_BROTLI, bytes([1, 2, min(level, 11), 0, 0]), \
             brotli.compress_mt_container(data, device=device)
-    if method in F.UNPORTED and F.UNPORTED[method][1]:
-        raise UnsupportedError(f"7z writer: method {method} is not ported to tpu7z_torch "
-                               f"yet; {F.ELSEWHERE}")
+    if method == "ppmd":
+        # order 6 and 16 MiB whatever the level, as tpu7z
+        stream, props = ppmd.compress(data, order=6, mem=1 << 24)
+        return F.M_PPMD, props, stream
     raise ParamError(f"7z writer: unknown method {method}")
 
 

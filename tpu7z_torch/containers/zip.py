@@ -2,9 +2,8 @@
 archive bytes from the same files, method and level. Methods: Store,
 Deflate (the encoder's parse and bit packing on the card), Deflate64
 (read), BZip2 (12; the block sort on the card), LZMA (14), Zstandard (93;
-the tensor encoder, its parse on the card) and XZ (95), each through the
-port's codec. PPMd (98) is not ported: it raises UnsupportedError and
-names tpu7z's CLI.
+the tensor encoder, its parse on the card), XZ (95) and PPMd var.I (98,
+models/ppmd/ppmd8.py on the host), each through the port's codec.
 
 Behavioral reference: CPP/7zip/Archive/Zip/ (ZipHeader.h:59-61 method
 ids incl. Zstd=93; decode ZipHandler.cpp:1169, encode
@@ -16,10 +15,10 @@ from __future__ import annotations
 import struct
 
 from ..device import resolve_device
+from ..models.ppmd import ppmd8
 from ..models.registry import get_codec
 from ..ops.hashing import crc32_native as _crc32
 from ..utils.errors import CorruptError, UnsupportedError
-from .sevenzip import format as F
 
 M_STORE = 0
 M_DEFLATE = 8
@@ -37,10 +36,6 @@ _EOCD64_SIG = 0x06064B50
 _EOCD64_LOC_SIG = 0x07064B50
 _FFFF = 0xFFFF
 _FFFFFFFF = 0xFFFFFFFF
-
-
-def _ppmd_refused():
-    return UnsupportedError(f"zip: method ppmd is not ported to tpu7z_torch yet; {F.ELSEWHERE}")
 
 
 # the methods whose entry is the registry codec's stream as it is
@@ -61,7 +56,7 @@ def _compress_entry(data: bytes, method: int, level: int, device):
         # zip-lzma payload: verMajor, verMinor, propsSize u16le, props
         return bytes([21, 3]) + struct.pack("<H", 5) + props5 + stream
     if method == M_PPMD:
-        raise _ppmd_refused()
+        return ppmd8.compress(data)
     raise UnsupportedError(f"zip: method {method} encode unsupported")
 
 
@@ -84,7 +79,7 @@ def _decompress_entry(comp: bytes, method: int, usize: int, device) -> bytes:
         from ..models.lzma import decoder
         return decoder.decompress_raw(comp[4 + psize:], props, usize)
     if method == M_PPMD:
-        raise _ppmd_refused()
+        return ppmd8.decompress(comp, usize)
     raise UnsupportedError(f"zip: method {method} decode unsupported")
 
 
