@@ -146,7 +146,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      over the corpus and the empty input's public digests; the CLI's `h`
      and `t -scrc=*` of 1 MiB (the same 21 digests), and `b -md1m` on the
      card (36 codec rows, 21 hashers, every round trip checked, its row
-     sorts counted).
+     sorts counted);
+ 14. the containers over the port's codecs (host code but for the bzip2
+     payloads' inverse BWT): the corpus as eight 4 MiB files in squashfs
+     images of zstd, LZ4 and zlib blocks, a .wim, .iso, UDF and FAT16
+     image (the FAT image also in a .vhd), cpio and ar, each written and
+     read back; an .rpm of their cpio as a gzip payload, and an .rpm and a
+     xar of the first 4 MiB as bzip2, each decoded on the card (its row
+     sorts counted) and on the CPU, equal; a xar of zlib entries; NSIS
+     (solid LZMA, non-solid deflate), NTFS with a 1 MiB LZNT1 $DATA (a
+     29-byte period: the Python LZNT1 matcher is too slow for text at
+     this size), HFS+, APFS and DMG at the tests' shapes, and ext4 through
+     `mke2fs -d` where the machine has it; the CLI's a, l, t and x of a
+     .wim, .udf, .fat, .vhd, .hex and .arj of 2 MiB. Each write and read
+     prints its seconds (host clock), bytes and row sorts.
 The timing helpers are tpu7z_torch/utils/timing.py's, shared with
 bench_torch.py. The line before the last is the per-kernel JSON; the last
 line is the device JSON. Imports nothing of JAX or tpu7z.
@@ -1506,6 +1519,309 @@ def ppmd_hash_phase(corpus, dev, S, card_label):
     return out
 
 
+# --- phase 14: the containers over the port's codecs ---
+
+NTFS_BPS, NTFS_SPC, NTFS_REC = 512, 8, 1024
+NTFS_CB = NTFS_BPS * NTFS_SPC
+
+
+def ntfs_volume(resident: bytes, packed: bytes) -> bytes:
+    """An NTFS volume as tests/test_ntfs.py builds one (4 KiB clusters, 1 KiB
+    records, the MFT at cluster 2): `resident` as a resident $DATA and
+    `packed` as an LZNT1-compressed $DATA in 64 KiB units, each unit's
+    stream followed by a sparse run, as NTFS stores them."""
+    import struct
+
+    from tpu7z_torch.containers import ntfs as NT
+
+    def record(attrs, flags=1):
+        rec = bytearray(0x38)
+        rec[0:4] = b"FILE"
+        struct.pack_into("<HH", rec, 20, 0x38, flags)
+        rec = bytearray((bytes(rec) + b"".join(attrs) + b"\xff\xff\xff\xff\0\0\0\0")
+                        .ljust(NTFS_REC, b"\0"))
+        count = 1 + NTFS_REC // NTFS_BPS
+        struct.pack_into("<HH", rec, 4, 0x30, count)
+        rec[0x30:0x32] = b"\x99\x99"
+        for k in range(1, count):
+            end = k * NTFS_BPS - 2
+            rec[0x30 + 2 * k:0x32 + 2 * k] = rec[end:end + 2]
+            rec[end:end + 2] = b"\x99\x99"
+        return bytes(rec)
+
+    def resident_attr(atype, value):
+        a = bytearray((24 + len(value) + 7) & ~7)
+        struct.pack_into("<II", a, 0, atype, len(a))
+        struct.pack_into("<IH", a, 16, len(value), 24)
+        a[24:24 + len(value)] = value
+        return bytes(a)
+
+    def nonresident_attr(atype, runs, vcns, real, unit_log=0):
+        a = bytearray((0x40 + len(runs) + 7) & ~7)
+        struct.pack_into("<II", a, 0, atype, len(a))
+        a[8] = 1
+        struct.pack_into("<H", a, 12, 1 if unit_log else 0)      # compressed
+        struct.pack_into("<QQHH", a, 16, 0, vcns - 1, 0x40, unit_log)
+        struct.pack_into("<QQQ", a, 40, vcns * NTFS_CB, real, real)
+        a[0x40:0x40 + len(runs)] = runs
+        return bytes(a)
+
+    def name(parent, text):
+        enc = text.encode("utf-16-le")
+        return struct.pack("<Q", parent) + bytes(56) + bytes([len(text), 1]) + enc
+
+    unit = 16 * NTFS_CB
+    data_lcn = 4
+    body, runs, lcn = bytearray(), bytearray(), 0
+    for u in range(0, len(packed), unit):
+        chunk = NT.lznt1_compress(packed[u:u + unit].ljust(unit, b"\0"))
+        nc = -(-len(chunk) // NTFS_CB)
+        if nc >= 16:
+            raise AssertionError("ntfs: a compression unit does not shrink")
+        at = data_lcn + len(body) // NTFS_CB
+        runs += bytes([0x41, nc]) + struct.pack("<i", at - lcn) + bytes([0x01, 16 - nc])
+        lcn = at
+        body += chunk.ljust(nc * NTFS_CB, b"\0")
+    runs += b"\0"
+    files = [record([resident_attr(0x30, name(5, "$Meta"))]) for _ in range(4)]
+    files += [record([resident_attr(0x30, name(5, "."))], flags=3),
+              record([resident_attr(0x30, name(5, "hello.txt")), resident_attr(0x80, resident)]),
+              record([resident_attr(0x30, name(5, "packed.bin")),
+                      nonresident_attr(0x80, bytes(runs), len(packed) // NTFS_CB, len(packed),
+                                       unit_log=4)])]
+    mft_runs = bytes([0x11, 2, 2, 0])
+    mft = record([resident_attr(0x30, name(5, "$MFT")),
+                  nonresident_attr(0x80, mft_runs, 2, 8 * NTFS_REC)]) + b"".join(files)
+    img = bytearray(data_lcn * NTFS_CB) + body
+    img[3:11] = b"NTFS    "
+    struct.pack_into("<HB", img, 11, NTFS_BPS, NTFS_SPC)
+    struct.pack_into("<QQ", img, 40, len(img) // NTFS_BPS, 2)   # sectors, the MFT's cluster
+    struct.pack_into("<b", img, 64, -10)                         # 2**10-byte records
+    img[510:512] = b"\x55\xaa"
+    img[2 * NTFS_CB:2 * NTFS_CB + len(mft)] = mft
+    return bytes(img)
+
+
+def nsis_installer(header: bytes, blocks, solid: bool, dev) -> bytes:
+    """An NSIS installer as tests/test_nsis.py builds one, behind an MZ
+    stub: a solid LZMA stream (the fast parse on the card, an end marker)
+    or non-solid deflate blocks (the parse on the card)."""
+    import struct
+
+    from tpu7z_torch.models import deflate as DF
+    from tpu7z_torch.models.lzma.encoder import compress_raw
+
+    if solid:
+        blob = b"".join(struct.pack("<I", len(b)) + b for b in (header, *blocks))
+        stream, props = compress_raw(blob, end_marker=True, device=dev)
+        body, stub = props + stream, 1024
+    else:
+        body = b"".join(struct.pack("<I", len(c) | 0x80000000) + c
+                        for c in (DF.compress(b, device=dev) for b in (header, *blocks)))
+        stub = 512
+    first = (struct.pack("<I", 0) + b"\xef\xbe\xad\xdeNullsoftInst"
+             + struct.pack("<II", len(header), 28 + len(body)))
+    return b"MZ" + bytes(stub - 2) + first + body
+
+
+def rpm_package(payload: bytes, compressor: bytes) -> bytes:
+    """An rpm as tests/test_unix_archives.py:39 `_make_rpm` builds one, with
+    the payload's compressor named."""
+    import struct
+
+    def header(entries):
+        idx, store = b"", b""
+        for tag, typ, data, count in entries:
+            idx += struct.pack(">IIII", tag, typ, len(store), count)
+            store += data
+        return struct.pack(">IIII", 0x8EADE801, 0, len(entries), len(store)) + idx + store
+
+    lead = (struct.pack(">IBBHH", 0xEDABEEDB, 3, 0, 0, 1) + b"t-1.0\x00".ljust(66, b"\x00")
+            + struct.pack(">HH", 1, 5) + bytes(16))
+    out = bytearray(lead) + header([(1000, 4, struct.pack(">I", 0), 1)])
+    out += bytes((-len(out)) % 8)
+    out += header([(1125, 6, compressor + b"\x00", 1), (1124, 6, b"cpio\x00", 1)])
+    return bytes(out) + payload
+
+
+def xar_bzip2(name: str, data: bytes) -> bytes:
+    """A xar of one bzip2 entry, in write_xar's layout."""
+    import bz2
+    import struct
+    import zlib
+
+    packed = bz2.compress(data, 9)
+    toc = ('<?xml version="1.0" encoding="UTF-8"?><xar><toc><file id="1"><name>'
+           f"{name}</name><type>file</type><data><offset>0</offset><length>{len(packed)}"
+           f"</length><size>{len(data)}</size>"
+           '<encoding style="application/x-bzip2"/></data></file></toc></xar>').encode()
+    ztoc = zlib.compress(toc, 9)
+    return b"xar!" + struct.pack(">HHQQI", 28, 1, len(ztoc), len(toc), 0) + ztoc + packed
+
+
+def containers_phase(corpus, dev, S, card_label):
+    """Phase 14, the containers over the port's codecs: (a) squashfs of the
+    corpus as eight 4 MiB files with zstd, LZ4 and zlib blocks; (b) .wim,
+    .iso, UDF and FAT16 of the eight files, and the FAT image in a .vhd;
+    (c) cpio and ar of them; (d) an .rpm of their cpio as a gzip payload,
+    and of the first 4 MiB's as a bzip2 payload decoded on the card; (e) a
+    xar of zlib entries, and one of a bzip2 entry of the first 4 MiB
+    decoded on the card; each bzip2 payload held against its CPU run; (f)
+    the reader-only types at the tests' shapes: NSIS (solid LZMA,
+    non-solid deflate), NTFS with a 1 MiB LZNT1 $DATA, HFS+, APFS, DMG and
+    ext (mke2fs -d, where the machine has it); (g) the CLI's a, l, t and x
+    of each type its `a` writes, over 2 MiB. Every write and read prints
+    its seconds (host clock), bytes and sort_rows launches. Returns the
+    numbers for the log and the kernels line."""
+    import bz2
+    import zlib
+
+    from tpu7z_torch.containers import (apfs, ar, cpio, disk, dmg, ext, fat, hfs, iso, nsis,
+                                        ntfs, rpm, squashfs, udf, wim, xar)
+    from tpu7z_torch.models import bzip2 as BZ
+    from tpu7z_torch.ops import _build
+
+    mib = 1 << 20
+    files = {f"part{i}.bin": corpus[i * 4 * mib:(i + 1) * 4 * mib] for i in range(8)}
+    out = {"rows": []}
+
+    def step(what, fn, want=None, check=None):
+        """Run fn once on the host clock, its sort_rows launches counted;
+        check its result; log and keep seconds, bytes and launches."""
+        S.reset_launches()
+        t = time.perf_counter()
+        got = fn()
+        seconds = time.perf_counter() - t
+        launches = S.LAUNCHES["sort_rows"]
+        if want is not None and got != want:
+            raise AssertionError(f"{what}: the result differs from what was written")
+        if check is not None and not check(got):
+            raise AssertionError(f"{what}: the result fails its check")
+        size = len(got) if isinstance(got, (bytes, bytearray)) else \
+            sum(len(v) for v in got.values())
+        log(f"{what}: {seconds:.3f} s (host clock), {size} bytes, {launches} sort_rows "
+            f"launches ({card_label})")
+        out["rows"].append({"what": what, "seconds": seconds, "bytes": size,
+                            "sort_rows_launches": launches})
+        return got
+
+    # (a) squashfs, the writer's three block codecs
+    for method, label in ((squashfs.M_ZSTD, "zstd"), (squashfs.M_LZ4, "lz4"),
+                          (squashfs.M_ZLIB, "zlib")):
+        img = step(f"squashfs write, {label} blocks, 8 x 4 MiB",
+                   lambda: squashfs.write_squashfs(files, method=method))
+        step(f"squashfs read, {label} blocks", lambda: squashfs.read_squashfs(img), files)
+    # (b) .wim, .iso, UDF and FAT16, and the FAT image in a .vhd
+    upper = {k.upper(): v for k, v in files.items()}
+    for label, write, read, want in (("wim", wim.write_wim, wim.read_wim, files),
+                                     ("iso", iso.write_iso, iso.read_iso, upper),
+                                     ("udf", udf.write_udf, udf.read_udf, files),
+                                     ("fat16", fat.write_fat16, fat.read_fat, upper)):
+        img = step(f"{label} write, 8 x 4 MiB", lambda: write(files))
+        step(f"{label} read", lambda: read(img), want)
+    vhd = step("vhd write of the FAT16 image", lambda: disk.write_vhd_fixed(img))
+    step("vhd read, then its FAT16", lambda: fat.read_fat(disk.read_vhd(vhd)["disk.img"]), upper)
+    # (c) cpio and ar
+    for label, write, read in (("cpio", cpio.write_cpio, cpio.read_cpio),
+                               ("ar", ar.write_ar, ar.read_ar)):
+        img = step(f"{label} write, 8 x 4 MiB", lambda: write(files))
+        step(f"{label} read", lambda: read(img), files)
+    # (d) .rpm: the eight files' cpio as a gzip payload; the first 4 MiB's
+    # as a bzip2 payload, decoded on the card and on the CPU
+    inner = {"./" + k: v for k, v in files.items()}
+    gz = zlib.compressobj(6, zlib.DEFLATED, 31)
+    pkg = rpm_package(gz.compress(cpio.write_cpio(inner)) + gz.flush(), b"gzip")
+    step(f"rpm read, gzip payload of 8 x 4 MiB ({len(pkg)} bytes)",
+         lambda: rpm.read_rpm(pkg, device=dev), files)
+    first = {"part0.bin": files["part0.bin"]}
+    pkg = rpm_package(bz2.compress(cpio.write_cpio({"./part0.bin": files["part0.bin"]}), 9),
+                      b"bzip2")
+    on_card = step(f"rpm read, bzip2 payload of 4 MiB ({len(pkg)} bytes), on the card",
+                   lambda: rpm.read_rpm(pkg, device=dev), first)
+    out["rpm_bzip2_launches"] = out["rows"][-1]["sort_rows_launches"]
+    step("rpm read, the same bzip2 payload, on the CPU", lambda: rpm.read_rpm(pkg, device="cpu"),
+         on_card)
+    # (e) xar: zlib entries over the eight files; one bzip2 entry
+    img = step("xar write, zlib entries, 8 x 4 MiB", lambda: xar.write_xar(files))
+    step("xar read", lambda: xar.read_xar(img, device=dev), files)
+    img = xar_bzip2("part0.bin", files["part0.bin"])
+    on_card = step(f"xar read, one bzip2 entry of 4 MiB ({len(img)} bytes), on the card",
+                   lambda: xar.read_xar(img, device=dev), first)
+    out["xar_bzip2_launches"] = out["rows"][-1]["sort_rows_launches"]
+    step("xar read, the same entry, on the CPU", lambda: xar.read_xar(img, device="cpu"), on_card)
+    for key in ("rpm_bzip2_launches", "xar_bzip2_launches"):
+        if out[key] == 0:
+            raise AssertionError(f"{key}: the bzip2 payload's decode launched no sort_rows")
+    # (f) the reader-only types at the tests' shapes
+    text = corpus[TEXT:TEXT + 3 * mib]
+    header, blocks = text[:720], [text[720:1670], text[2000:3000]]
+    for solid in (True, False):
+        exe = nsis_installer(header, blocks, solid, dev)
+        got = step(f"nsis read, {'solid LZMA' if solid else 'non-solid deflate'} "
+                   f"({len(exe)} bytes)", lambda: nsis.read_nsis(exe))
+        if [got["[NSIS].nsi-header"], got["data_0000.bin"], got["data_0001.bin"]] != \
+                [header, *blocks]:
+            raise AssertionError("nsis: the installer's blocks differ from what was written")
+    # LZNT1 in Python: 1 MiB of a 29-byte period (its greedy matcher scans
+    # every distance of each 4 KiB chunk; text at this size takes minutes)
+    period = (b"ntfs compressed payload line\n" * (mib // 29 + 1))[:mib]
+    vol = step("ntfs volume with a 1 MiB LZNT1 $DATA, built (lznt1_compress)",
+               lambda: ntfs_volume(text[:300], period))
+    step("ntfs read", lambda: ntfs.read_ntfs(vol), {"hello.txt": text[:300], "packed.bin": period})
+    small = {"readme.txt": text[:8500], "empty.bin": b"", "rand.dat": corpus[-30000:]}
+    img = step("hfs+ write", lambda: hfs.write_hfs(small))
+    step("hfs+ read", lambda: hfs.read_hfs(img), small)
+    img = step("apfs write", lambda: apfs.write_apfs(small))
+    step("apfs read", lambda: apfs.read_apfs(img), small)
+    parts = {"Apple_HFS": text[:200000], "rand": corpus[-90000:]}
+    img = step("dmg write", lambda: dmg.write_dmg(parts))
+    step("dmg read", lambda: dmg.read_dmg(img),
+         check=lambda g: all(g[k][:len(v)] == v for k, v in parts.items()))
+    mke2fs = shutil.which("mke2fs") or "/usr/sbin/mke2fs"
+    work = Path(tempfile.mkdtemp(dir=_build.BUILD))
+    try:
+        if os.path.exists(mke2fs):
+            tree = {"a.txt": text[:10000], "d1/d2/deep.bin": corpus[-50000:],
+                    "sparse": bytes(80000)}
+            for rel, data in tree.items():
+                (work / "tree" / rel).parent.mkdir(parents=True, exist_ok=True)
+                (work / "tree" / rel).write_bytes(data)
+            subprocess.run([mke2fs, "-q", "-t", "ext4", "-b", "4096", "-d", str(work / "tree"),
+                            "-N", "64", str(work / "img.ext4"), "512"], check=True,
+                           capture_output=True)
+            img = (work / "img.ext4").read_bytes()
+            step(f"ext4 read (mke2fs -d, {len(img)} bytes)", lambda: ext.read_ext(img),
+                 check=lambda g: {k: v for k, v in g.items() if not k.endswith("/")} == tree)
+        else:
+            log("ext: no mke2fs on this machine; the ext image is not built or read here")
+        # (g) the CLI's a, l, t and x of each type `a` writes, over 2 MiB
+        head = corpus[:2 * mib]
+        src = work / "head.bin"
+        src.write_bytes(head)
+        for atype, ext_ in (("wim", "wim"), ("udf", "udf"), ("fat", "fat"), ("vhd", "vhd"),
+                            ("ihex", "hex"), ("arj", "arj")):
+            arc = str(work / f"head.{ext_}")
+            dest = work / f"out_{atype}"
+            for args in (["a", f"-t{atype}", arc, str(src)], ["l", arc], ["t", arc],
+                         ["x", arc, f"-o{dest}"]):
+                S.reset_launches()
+                t = time.time()
+                rc, said = cli_run(args, dev)
+                log(f"cli {args[0]} head.{ext_}: exit {rc} in {time.time() - t:.3f} s, "
+                    f"{S.LAUNCHES['sort_rows']} sort_rows launches: "
+                    f"{said.strip().splitlines()[-1]!r}")
+                if rc != 0:
+                    raise AssertionError(f"the CLI's {args[0]} of head.{ext_} exited {rc}")
+            back = [p.read_bytes() for p in dest.iterdir()]
+            if len(back) != 1 or back[0][:len(head)] != head:
+                raise AssertionError(f"the CLI's head.{ext_} does not extract to its input")
+        log("the CLI's a, l, t and x of a .wim, .udf, .fat, .vhd, .hex and .arj of 2 MiB "
+            "extract to their input")
+    finally:
+        shutil.rmtree(work)
+    return out
+
+
 def aes_passes(corpus, key, iv, dev, card_label):
     """The card's decrypt_cbc over more than one pass of CHUNK_BLOCKS
     blocks: the corpus encrypted natively (held to its Python twin in
@@ -2282,6 +2598,12 @@ def main() -> int:
     ph = ppmd_hash_phase(corpus, dev, S, f"{card_name}, {power_limit}")
     log(f"phase 13 in {time.time() - t:.1f} s")
     sort_entry["launches_by_path"].update(cli_b=ph["b"]["sort_rows_launches"])
+    # 14. the containers over the port's codecs
+    t = time.time()
+    ct = containers_phase(corpus, dev, S, f"{card_name}, {power_limit}")
+    log(f"phase 14 in {time.time() - t:.1f} s")
+    sort_entry["launches_by_path"].update(rpm_bzip2=ct["rpm_bzip2_launches"],
+                                          xar_bzip2=ct["xar_bzip2_launches"])
 
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

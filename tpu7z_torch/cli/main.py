@@ -1,30 +1,39 @@
-"""The port's command line: tpu7z's CLI for .7z, .zip, .tar, .lz4, .zst,
-.xz, .gz, .bz2, .br, .lz5, .liz, .Z and .lz.
+"""The port's command line: tpu7z's CLI for .7z, .zip, .tar, the
+single streams, the bare codec streams, and tpu7z's containers over the
+codecs the port holds: squashfs, cpio, ar (.deb), rpm, iso, xar, wim,
+ext, the disk images (mbr, gpt, vhd, qcow, vdi, vmdk, vhdx), fat, udf,
+swf, flv, ihex, base64, pe, elf, macho, arj, dmg, hfs, ntfs, apfs and nsis.
 
     python -m tpu7z_torch.cli a [-t7z] [-m0={method}] [-mx{N}] [-p{password}] [-mhe] archive.7z inputs...
     python -m tpu7z_torch.cli a -tzip [-m0={method}] [-mx{N}] archive.zip inputs...
-    python -m tpu7z_torch.cli a -ttar archive.tar inputs...
+    python -m tpu7z_torch.cli a -ttar|-twim|-tudf|-tfat|-tarj archive inputs...
+    python -m tpu7z_torch.cli a -tvhd|-tihex archive input
     python -m tpu7z_torch.cli a -tlz4 [-mdev] archive.lz4 input
     python -m tpu7z_torch.cli a -tzstd [-mx{N}] [-mmt{N}] [-m0=zstd:wlog=N] archive.zst input
     python -m tpu7z_torch.cli a -txz archive.xz input
     python -m tpu7z_torch.cli a -tgzip archive.gz input
     python -m tpu7z_torch.cli a -tbzip2 [-mx{N}] archive.bz2 input
     python -m tpu7z_torch.cli a -tbrotli|-tlz5|-tlizard|-tz|-tlzip [-mx{N}] archive input
+    python -m tpu7z_torch.cli a -t{codec} [-m0={codec}] [-mx{N}] archive input
     python -m tpu7z_torch.cli u archive inputs...      (any type `a` writes)
-    python -m tpu7z_torch.cli t archive [-p{password}] [-mmt{N}] [-scrc[={hasher}|*]]
-    python -m tpu7z_torch.cli x archive [-o{dir}] [-p{password}] [-so] [-mmt{N}]
+    python -m tpu7z_torch.cli t archive [-t{type}] [-p{password}] [-mmt{N}] [-scrc[={hasher}|*]]
+    python -m tpu7z_torch.cli x archive [-t{type}] [-o{dir}] [-p{password}] [-so] [-mmt{N}]
     python -m tpu7z_torch.cli l archive [-slt] [-p{password}]
     python -m tpu7z_torch.cli h files...
     python -m tpu7z_torch.cli i
     python -m tpu7z_torch.cli b [codec|hasher] [-md{size}] [-mx{N}]
 
-The archive's type comes from -t, else from its name (tpu7z's table of
-extensions), else, for `t`, `x` and `l`, from its first bytes; a name
-that says nothing is a .7z, as in tpu7z. `a` reads its inputs as tpu7z's
-`cmd_add` does: each input file under its base name, each file under an
-input directory under its path relative to the working directory, or
-standard input with -si. The archive is written to a temporary file and
-renamed over its name, or to standard output with -so.
+The archive's type comes from -t, as typed, else from its name (tpu7z's
+table of extensions), else, for `t`, `x` and `l`, from its first bytes
+(tpu7z's magic tests, in its order); a name that says nothing is a .7z,
+as in tpu7z. A type that is none of the containers names a codec of the
+registry, in any case (models/registry.py: get_codec), and `a` writes, `t`
+and `x` read, that codec's bare stream; -m0 names the codec of a single
+stream (`a -tlz4 -m0=zstd` writes a zstd frame, as tpu7z does). `a` reads
+its inputs as tpu7z's `cmd_add` does: each input file under its base name,
+each file under an input directory under its path relative to the working
+directory, or standard input with -si. The archive is written to a
+temporary file and renamed over its name, or to standard output with -so.
   .7z (containers/sevenzip): every input, one solid folder; -m0= copy,
       lzma2 (the default), zstd, lz4, bcj2, deflate, bzip2, brotli or
       ppmd; -mx{N} (default 5, as is -mx0); -p{password} encrypts each
@@ -48,6 +57,10 @@ renamed over its name, or to standard output with -so.
       codec does not shrink it; deflate's parse and bit packing and
       bzip2's block sort run on the card, zstd's parse too;
   .tar (containers/tar.py): ustar, every input a file;
+  -twim, -tudf, -tfat (FAT16), -tarj: every input a file, stored, on the
+      host; -tvhd: the one input as a fixed VHD disk; -tihex: the one
+      input as Intel HEX records (containers/wim.py, udf.py, fat.py,
+      misc.py, disk.py);
   -tgzip: DEFLATE on the card in tpu7z's gzip member (the level ignored);
   -tbzip2: bzip2 at -mx{N} (default 5), its block sort on the card;
   -tbrotli (.br): the brotli-mt container at quality min(N, 11) (default
@@ -57,26 +70,30 @@ renamed over its name, or to standard output with -so.
       (default 25), its parse on the card; -tz (.Z, .taz): LZW at
       max(9, min(N, 16)) bits (default 9), on the host; -tlzip (.lz, .tlz):
       one lzip member, its LZMA parse on the card;
+  -tcopy, -tdeflate, -tlzma2 (any codec of the registry): its bare
+      stream, deflate's parse on the card;
   -m0=ppmd: .7z folders of PPMd var.H (order 6, 16 MiB whatever the
       level) and .zip entries of var.I (method 98), on the host.
 The single-stream types take one input; more are refused as in tpu7z.
 The device flag (-mdev, dev in -m0, TPU7Z_DEVICE) selects lz4's device
-coder; with the other types, which have none, it is ignored, as in
-tpu7z, with a note on stderr (their tensor stages run on the card all
-the same). -mmt takes tpu7z's grammar
+coder (for -tlz4 as typed); with the other types, which have none, it is
+ignored without a word, as in tpu7z (their tensor stages run on the card
+all the same). -mmt takes tpu7z's grammar
 (utils/methodprops.py: parse_mt).
-`t` tests and `x`/`e` extract: a .7z's files (with their unix modes, as
-tpu7z sets them), a .zip's or a .tar's, under -o{dir}, or every file's
-bytes to standard output with -so; a .lz4 or .zst stream's frames and
-blocks in parallel (parallel/decode.py), serially at -mmt1; a .xz, .gz
-(host inflate), .bz2 (its inverse BWT on the card), .br, .lz5, .liz, .Z
-or .lz in one piece, on the host. `x` names a stream's output as tpu7z
-does: by default the archive's name with each known extension stripped in
-turn, at -mmt1 for .lz4, .zst, .xz, .gz and .bz2 (tpu7z's streamed
-types) with one stripped or `.out` added; where that name is the
-archive itself, `.out` is added
-(tpu7z would overwrite its input). `t -scrc` also prints the content's
-hash: CRC32, the hasher named, or with `*` every one (ops/hashers.py).
+`t` tests and `x`/`e` extract: an archive's files (a .7z's with their unix
+modes, as tpu7z sets them) under -o{dir}, or every file's bytes to
+standard output with -so; a .lz4 or .zst stream's frames and blocks in
+parallel (parallel/decode.py), serially at -mmt1; any other stream in one
+piece, on the host, but for bzip2's inverse BWT, which runs on the card.
+The containers read on the host, through the codecs the port holds
+(containers/*.py); the bzip2 payloads of an rpm and the bzip2 entries of
+a xar and a .zip run their inverse BWT on the card. `x` names a stream's
+output as tpu7z does: by default the archive's name with each known
+extension stripped in turn, at -mmt1 for .lz4, .zst, .xz, .gz and .bz2
+(tpu7z's streamed types) with one stripped or `.out` added; where that
+name is the archive itself, `.out` is added (tpu7z would overwrite its
+input). `t -scrc` also prints the content's hash: CRC32, the hasher named,
+or with `*` every one (ops/hashers.py).
 `u` overlays the inputs on the archive's files, if it exists, and
 rewrites it as `a` would. `l` lists a .7z's files, and with -slt their
 technical lines, and any other archive's or stream's files with their
@@ -85,11 +102,12 @@ the codecs, hashers and types (the port's own banner); `b` benchmarks
 every codec at its low, mid and high levels (-mx: one level) over
 make_corpus(-md size, 4 MiB by default), each round trip checked, then
 every hasher: tpu7z's lines, with this machine's rates.
-The rest of tpu7z's CLI (other types and switches: -i!, -x!, -v, -bb,
--bd, the streaming extract) is `python -m tpu7z.cli`'s: asking the port
-for it exits with 2 and says so. The bytes written are tpu7z's. The
-.7z, .zip, .gz, .bz2, .br, .lz5, .liz and .lz verbs, BLAKE3 and `b`'s
-tensor stages run on the card.
+The rest of tpu7z's CLI (lzh, cab, chm and rar, and the switches -i!, -x!,
+-v, -bb, -bd and the streaming extract) is `python -m tpu7z.cli`'s:
+asking the port for it exits with 2 and says so. The bytes written are
+tpu7z's. The .7z, .zip, .gz, .bz2, .br, .lz5, .liz and .lz verbs, the
+bzip2 payloads of the containers, BLAKE3 and `b`'s tensor stages run on
+the card.
 """
 
 from __future__ import annotations
@@ -100,7 +118,8 @@ import sys
 import time
 from dataclasses import dataclass, field
 
-from ..containers import xz
+from ..containers import (apfs, ar, cpio, disk, dmg, ext, fat, hfs, iso, misc, nsis, ntfs,
+                          rpm, squashfs, udf, wim, xar, xz)
 from ..containers.sevenzip import SevenZipReader, write_archive
 from ..containers.tar import read_tar, write_tar
 from ..containers.zip import read_zip, write_zip
@@ -136,11 +155,12 @@ EXT_TYPES = {
     ".dmg": "dmg", ".hfs": "hfs",
     ".vhdx": "vhdx", ".rar": "rar", ".apfs": "apfs",
 }
-# where the content decides before the extension: an .exe may hold a 7z
+# where the content decides before the extension: an .exe may hold an
+# NSIS installer or a 7z
 AMBIGUOUS_EXTS = {".exe": "pe", ".dll": "pe", ".sys": "pe"}
-# tpu7z's magic tests (tpu7z/cli/main.py:64-97), in its order, up to the
-# last type the port serves; the types among them that the port does not
-# serve are named (and refused) as tpu7z names them
+# tpu7z's magic tests (tpu7z/cli/main.py:64-161), in its order; the types
+# among them that the port does not read (UNPORTED) are named, and
+# refused, as tpu7z names them
 MAGICS = (
     ("7z", lambda d: d[:6] == b"7z\xbc\xaf\x27\x1c"),
     ("zstd", lambda d: d[:4] == zframe.MAGIC.to_bytes(4, "little")),
@@ -159,23 +179,77 @@ MAGICS = (
     ("lizard", lambda d: d[:4] == b"\x06\x22\x4d\x18"),
     ("zip", lambda d: d[:4] in (b"PK\x03\x04", b"PK\x05\x06")),
     ("tar", lambda d: len(d) > 262 and d[257:262] == b"ustar"),
+    ("squashfs", lambda d: d[:4] == b"hsqs"),
+    ("cpio", lambda d: d[:6] in (b"070701", b"070702", b"070707")
+     or d[:2] in (b"\xc7\x71", b"\x71\xc7")),
+    ("ar", lambda d: d[:8] == b"!<arch>\n"),
+    ("rpm", lambda d: d[:4] == b"\xed\xab\xee\xdb"),
+    ("iso", lambda d: len(d) > 16 * 2048 + 6 and d[16 * 2048 + 1:16 * 2048 + 6] == b"CD001"),
+    ("rar", lambda d: d[:8] in (b"Rar!\x1a\x07\x00\x00", b"Rar!\x1a\x07\x01\x00")
+     or d[:7] == b"Rar!\x1a\x07\x00"),
+    ("chm", lambda d: d[:4] == b"ITSF"),
+    ("nsis", lambda d: len(d) > 512 and d[:2] == b"MZ" and nsis.is_nsis(d)),
+    ("swf", lambda d: d[:3] in (b"FWS", b"CWS", b"ZWS")),
+    ("flv", lambda d: d[:3] == b"FLV"),
+    ("arj", lambda d: d[:2] == b"\x60\xea"),
+    ("qcow", lambda d: d[:3] == b"QFI"),
+    ("vhdx", lambda d: d[:8] == b"vhdxfile"),
+    ("vmdk", lambda d: d[:4] == b"KDMV"),
+    ("vdi", lambda d: d[64:68] == b"\x7f\x10\xda\xbe"),
+    ("udf", lambda d: len(d) > 2048 * 17 and d[2048 * 16 + 1:2048 * 16 + 6] == b"BEA01"),
+    ("elf", lambda d: d[:4] == b"\x7fELF"),
+    ("dmg", lambda d: len(d) >= 512 and d[-512:-508] == b"koly"),
+    ("hfs", lambda d: len(d) > 1536 and d[1024:1026] in (b"H+", b"HX")),
+    ("macho", misc.is_macho),
+    ("pe", misc.is_pe),
+    ("fat", lambda d: len(d) > 512 and d[510:512] == b"\x55\xaa"
+     and (d[54:62] in (b"FAT12   ", b"FAT16   ") or d[82:90] == b"FAT32   ")),
+    ("ntfs", lambda d: len(d) > 512 and d[3:11] == b"NTFS    "),
+    ("apfs", lambda d: d[32:36] == b"NXSB"),
+    ("gpt", disk.is_gpt),
+    ("vhd", disk.is_vhd),
+    ("ihex", misc.is_ihex),
+    ("mbr", disk.is_mbr),
 )
-SERVED = ("7z", "zip", "tar", "lz4", "zstd", "xz", "gzip", "bzip2", "brotli", "lz5",
-          "lizard", "z", "lzip")
-ARCHIVES = ("7z", "zip", "tar")      # many files, each under its own name
-# `i`'s Formats line: tpu7z's (tpu7z/cli/main.py:689) with only the types
-# the port serves, and lzip, which it serves too
+# the types tpu7z reads whose codecs the port does not hold yet
+UNPORTED = ("lzh", "cab", "chm", "rar")
+# tpu7z's container readers (tpu7z/cli/main.py:446-523), each to {name:
+# bytes}; those in ON_CARD_READERS run their codec's tensor stages on the
+# device (zip's deflate and bzip2, rpm's and xar's bzip2)
+READERS = {
+    "zip": read_zip, "tar": read_tar, "squashfs": squashfs.read_squashfs,
+    "cpio": cpio.read_cpio, "ar": ar.read_ar, "rpm": rpm.read_rpm, "iso": iso.read_iso,
+    "xar": xar.read_xar, "wim": wim.read_wim, "ext": ext.read_ext,
+    "mbr": disk.read_mbr, "gpt": disk.read_gpt, "vhd": disk.read_vhd, "qcow": disk.read_qcow,
+    "vdi": disk.read_vdi, "vmdk": disk.read_vmdk, "vhdx": disk.read_vhdx,
+    "swf": misc.read_swf, "flv": misc.read_flv, "ihex": misc.read_ihex,
+    "base64": misc.read_base64, "pe": misc.read_pe, "elf": misc.read_elf,
+    "macho": misc.read_macho, "arj": misc.read_arj, "fat": fat.read_fat,
+    "ntfs": ntfs.read_ntfs, "udf": udf.read_udf, "dmg": dmg.read_dmg, "hfs": hfs.read_hfs,
+    "nsis": nsis.read_nsis, "apfs": apfs.read_apfs,
+}
+ON_CARD_READERS = ("zip", "rpm", "xar")
+# tpu7z's container writers in `a` (tpu7z/cli/main.py:342-369); vhd and
+# ihex take one input, with tpu7z's message for more
+WRITERS = {"tar": write_tar, "wim": wim.write_wim, "udf": udf.write_udf,
+           "fat": fat.write_fat16, "arj": misc.write_arj}
+ONE_INPUT_WRITERS = {"vhd": ("single disk image expected", disk.write_vhd_fixed),
+                     "ihex": ("single input expected", misc.write_ihex)}
+ARCHIVES = ("7z", *READERS)      # many files, each under its own name
+# `i`'s Formats line: tpu7z's (tpu7z/cli/main.py:689-690) without lzh,
+# then the other types the port serves, in tpu7z's sniff order
 FORMATS = ("7z", "zstd", "lz4", "lz5", "lizard", "brotli", "xz", "bzip2", "gzip", "tar", "zip",
-           "Z", "lzip")
-# the single-stream types whose codec takes the device
-ON_CARD = ("gzip", "bzip2", "brotli", "lz5", "lizard", "lzip")
+           "squashfs", "cpio", "ar", "rpm", "iso", "xar", "Z", "lzip", "wim", "ext", "nsis",
+           "swf", "flv", "arj", "qcow", "vhdx", "vmdk", "vdi", "udf", "elf", "dmg", "hfs",
+           "macho", "pe", "fat", "ntfs", "apfs", "gpt", "vhd", "ihex", "mbr", "base64")
+# the codecs whose compress takes the device for its tensor stages
+ON_CARD = ("deflate", "gzip", "bzip2", "brotli", "lz5", "lizard", "lzip")
 # the types tpu7z's `x` streams at -mmt1 (tpu7z/utils/streamio.py
 # STREAMABLE), naming their output by STRIP_ONE
 STREAMED = ("lz4", "zstd", "gzip", "bzip2", "xz")
 # tpu7z's .zip method names (tpu7z/cli/main.py:336-337); another is deflate
 ZIP_METHODS = {"copy": 0, "deflate": 8, "bzip2": 12, "lzma": 14, "zstd": 93, "xz": 95,
                "ppmd": 98}
-TYPES = {"zst": "zstd"}
 # the extensions tpu7z's extract strips from an output name: each in turn
 # by default (tpu7z/cli/main.py:524), the first that matches at -mmt1
 # (:553), where it adds `.out` if none does
@@ -214,7 +288,7 @@ def _parse(args) -> tuple[Options, list[str]]:
     opts, rest = Options(), []
     for a in args:
         if a.startswith("-t"):
-            opts.type = a[2:].lower()
+            opts.type = a[2:]
         elif a.startswith("-m0="):
             opts.method, opts.props = parse_method_spec(a[4:])
             if "x" in opts.props:
@@ -253,8 +327,9 @@ def _parse(args) -> tuple[Options, list[str]]:
 
 def _sniff_type(path: str, data: bytes | None = None) -> str:
     """The archive type as tpu7z's `_sniff_type` gives it: the extension,
-    else the magic of a type the port serves, else a .7z; an .exe, .dll
-    or .sys is a .7z only if it holds a 7z signature after its stub."""
+    else the first magic that matches, else a .7z; an .exe, .dll or .sys
+    is read by its magic (an NSIS installer, a PE), else as a .7z if it
+    holds a 7z signature after its stub."""
     fallback = next((t for ext, t in AMBIGUOUS_EXTS.items() if path.endswith(ext)), None)
     if fallback is None:
         for ext, t in EXT_TYPES.items():
@@ -307,19 +382,13 @@ def _add(opts: Options, args, device, update: bool = False) -> int:
     if not args:
         raise UsageError(f"{verb}: missing archive name")
     archive, inputs = args[0], args[1:]
-    atype = TYPES.get(opts.type, opts.type) if opts.type else _sniff_type(archive)
-    method = TYPES.get(opts.method, opts.method) if opts.method else atype
-    # tpu7z reads the device flag for lz4 only: lz4's device coder takes
-    # the stream whatever -m0 names; the other types have no device coder
-    asked = opts.device or bool(opts.props.get("dev"))
-    dev = asked and atype == "lz4"
-    if not dev and atype not in ARCHIVES and (atype not in SERVED or method != atype):
-        raise UsageError(f"-t{opts.type or atype}: the port writes only .lz4, .zst, .xz, "
-                         f".gz and .bz2, each with its own codec, likewise .br, .lz5, .liz, "
-                         f".Z and .lz, and .7z, .zip and .tar; {ELSEWHERE}")
-    if asked and not dev:
-        print(f"note: -mdev: {atype} has no device coder; the flag is ignored, as in tpu7z",
-              file=sys.stderr)
+    atype = opts.type or _sniff_type(archive)
+    # tpu7z reads the device flag for `-tlz4` only, as typed, and says
+    # nothing where it ignores it: lz4's device coder takes the stream
+    # whatever -m0 names; the other types have no device coder
+    dev = (opts.device or bool(opts.props.get("dev"))) and atype == "lz4"
+    if atype in ("cab", "rar"):
+        raise UsageError(f"-t{atype}: the port does not write {atype}; {ELSEWHERE}")
     files = _read_input(opts, inputs)
     if update and os.path.exists(archive) and not opts.stdout:
         files = {**_open(opts, archive, device)[1], **files}
@@ -332,23 +401,30 @@ def _add(opts: Options, args, device, update: bool = False) -> int:
     elif atype == "zip":
         out = write_zip(files, method=ZIP_METHODS.get(opts.method or "deflate", 8),
                         level=opts.level or 6, device=device)
-    elif atype == "tar":
-        out = write_tar(files)
+    elif atype in WRITERS:
+        out = WRITERS[atype](files)
+    elif atype in ONE_INPUT_WRITERS:
+        message, write = ONE_INPUT_WRITERS[atype]
+        if len(files) > 1:
+            raise TpuzError(f"-t{atype}: {message}")
+        out = write(next(iter(files.values())))
     else:
-        data = _one_stream(files, opts.type or atype)
+        data = _one_stream(files, atype)
         if dev:
             out = shard_compress_lz4_device(data, device=device)
         else:
-            # through the registry, as tpu7z's: lz4 and xz take no options
+            # a bare stream of the codec -m0 or the type names, through
+            # the registry, as tpu7z's (lz4 and xz take no options)
+            codec = get_codec(opts.method or atype)
             kw = {}
             if "wlog" in opts.props:
                 kw["window_log"] = int(opts.props["wlog"])
                 kw["device"] = device
-            if opts.threads and atype == "zstd":
+            if opts.threads and codec.name == "zstd":
                 kw["threads"] = opts.threads
-            if atype in ON_CARD:
+            if codec.name in ON_CARD:
                 kw["device"] = device
-            out = get_codec(atype).compress(data, level=opts.level or DEFAULT_LEVEL, **kw)
+            out = codec.compress(data, level=opts.level or DEFAULT_LEVEL, **kw)
     if opts.stdout:
         sys.stdout.buffer.write(out)
         return 0
@@ -445,21 +521,22 @@ def _open(opts: Options, path: str | None, device) -> tuple[str, dict, dict]:
     else:
         with open(path, "rb") as f:
             data = f.read()
-    atype = TYPES.get(opts.type, opts.type) if opts.type else _sniff_type(path or "", data)
-    if atype not in SERVED:
-        raise UsageError(f"{path or 'stdin'}: the port reads .7z, .zip, .tar, .lz4, .zst, .xz, "
-                         f".gz, .bz2, .br, .lz5, .liz, .Z and .lz only; {ELSEWHERE}")
+    atype = opts.type or _sniff_type(path or "", data)
+    if atype in UNPORTED:
+        raise UsageError(f"{path or 'stdin'}: the port does not read {atype}; {ELSEWHERE}")
     if atype == "7z":
         rd = SevenZipReader(data, password=opts.password, device=device)
         return atype, rd.extract_all(), _metadata(rd)
-    if atype in ("zip", "tar"):
-        return atype, read_zip(data, device=device) if atype == "zip" else read_tar(data), {}
-    if atype in ON_CARD:
-        content = get_codec(atype).decompress(data, device=device)
+    if atype in ON_CARD_READERS:
+        return atype, READERS[atype](data, device=device), {}
+    if atype in READERS:
+        return atype, READERS[atype](data), {}
+    # a single stream, of the codec the type names
+    codec = get_codec(atype)
     # .zst and .lz4 frames and blocks decode in parallel; -mmt1 forces
     # the serial path
-    elif atype not in ("zstd", "lz4") or opts.threads == 1:
-        content = get_codec(atype).decompress(data)
+    if atype not in ("zstd", "lz4") or opts.threads == 1:
+        content = codec.decompress(data, device=device)
     elif atype == "zstd":
         content = decode.decompress_zstd(data, threads=opts.threads)
     else:
@@ -504,12 +581,11 @@ def _list(opts: Options, args, device) -> int:
     path = args[0]
 
     def served(atype):
-        if TYPES.get(atype, atype) not in SERVED:
-            raise UsageError(f"l: the port lists only .7z, .zip, .tar and the streams it "
-                             f"reads, not {atype}; {ELSEWHERE}")
+        if atype in UNPORTED:
+            raise UsageError(f"l: the port does not read {atype}; {ELSEWHERE}")
         return atype
 
-    # a name that says another type is refused before it is read
+    # a name that says an unported type is refused before it is read
     served(opts.type or _sniff_type(path))
     with open(path, "rb") as f:
         data = f.read()
@@ -629,9 +705,9 @@ VERBS = {"a": _add, "u": lambda o, r, d: _add(o, r, d, update=True),
 
 def main(argv=None, *, device=None) -> int:
     """Run one command; returns the exit code. The device encoders, the
-    .7z, .zip, .gz, .bz2, .br, .lz5, .liz and .lz verbs, BLAKE3 and `b`'s
-    tensor stages run on the CUDA card unless `device` names another
-    (the tests name the CPU)."""
+    .7z, .zip, .gz, .bz2, .br, .lz5, .liz and .lz verbs, the containers'
+    bzip2 payloads, BLAKE3 and `b`'s tensor stages run on the CUDA card
+    unless `device` names another (the tests name the CPU)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(__doc__)
