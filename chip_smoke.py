@@ -159,7 +159,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      this size), HFS+, APFS and DMG at the tests' shapes, and ext4 through
      `mke2fs -d` where the machine has it; the CLI's a, l, t and x of a
      .wim, .udf, .fat, .vhd, .hex and .arj of 2 MiB. Each write and read
-     prints its seconds (host clock), bytes and row sorts.
+     prints its seconds (host clock), bytes and row sorts;
+ 15. the containers with their own codecs and the rest of the CLI:
+     `sort_rows` at MSZIP's rows (1024 x 32765 hashes) against its plain
+     version, timed; the corpus as an MSZIP cabinet on the card (one row
+     sort, every CFDATA inflated by zlib with the previous 32 KiB as its
+     dictionary, the first 128 equal to the CPU run's, read back by
+     `read_cab`); an LZX cabinet and a CHM of 256 KiB, an lh5 .lzh of
+     1 MiB and a RAR5 of 4 MiB, each read back (host); the CLI's a, l, t
+     and x of a .cab, a .rar and a stored .rar of 512 KiB, `x -mmt1`
+     streaming the corpus's .lz4, .zst, .gz, .bz2 and .xz, `a -v8m` and
+     `x` of the `.001`, `-i!`, `-x!` and `-bb`. Each step prints its
+     seconds (host clock), bytes and row sorts.
 The timing helpers are tpu7z_torch/utils/timing.py's, shared with
 bench_torch.py. The line before the last is the per-kernel JSON; the last
 line is the device JSON. Imports nothing of JAX or tpu7z.
@@ -1822,6 +1833,219 @@ def containers_phase(corpus, dev, S, card_label):
     return out
 
 
+# --- phase 15: the containers with their own codecs, and the rest of the CLI ---
+
+def cfdata(cabinet: bytes):
+    """[(payload, uncompressed size)] of a one-folder cabinet's CFDATA."""
+    import struct
+
+    coff, count = struct.unpack_from("<IH", cabinet, 36)
+    out = []
+    for _ in range(count):
+        cb, cu = struct.unpack_from("<HH", cabinet, coff + 4)
+        out.append((cabinet[coff + 8:coff + 8 + cb], cu))
+        coff += 8 + cb
+    return out
+
+
+def codecs_cli_phase(corpus, dev, S, card_label, time_sort=True):
+    """Phase 15, the containers with their own codecs and the rest of the
+    CLI: (a) `sort_rows` at MSZIP's rows against its plain version, timed;
+    the corpus as eight 4 MiB files in an MSZIP cabinet on the card (one
+    row sort), every CFDATA inflated by zlib with the previous 32 KiB as
+    its dictionary, the first 128 equal to the CPU run's cabinet of the
+    first 4 MiB, which `read_cab` reads back; (b) round trips through the
+    port's readers: an LZX cabinet and a CHM of 256 KiB, an lh5 .lzh of
+    1 MiB, a RAR5 of 4 MiB; (c) the CLI: `a -tcab`, `a -trar`, `a -trar
+    -m0=copy` of 512 KiB with `x`, `l` and `t` of each; `x -mmt1`
+    streaming the corpus's .lz4, .zst, .gz, .bz2 and .xz; `a -v8m` of the
+    corpus and `x` of its `.001`; `a -i!*.txt` and `x -x!*.log -bb`. Every
+    step prints its seconds (host clock), bytes and sort_rows launches.
+    Returns the numbers for the log and the kernels line."""
+    import bz2
+    import contextlib
+    import io
+    import lzma
+    import zlib
+
+    from tpu7z_torch.containers import cab, chm, lzh, rar
+    from tpu7z_torch.models.deflate import codec as DFC
+    from tpu7z_torch.models.lz4 import frame as LZ4F
+    from tpu7z_torch.models.zstd import frame as ZF
+    from tpu7z_torch.ops import _build
+    from tpu7z_torch.ops import hash_chain as HC
+    from tpu7z_torch.ops import match as M
+
+    mib = 1 << 20
+    files = {f"part{i}.bin": corpus[i * 4 * mib:(i + 1) * 4 * mib]
+             for i in range(len(corpus) // (4 * mib))}
+    out = {"rows": [], "sort": {}}
+
+    def step(what, fn, want=None, check=None):
+        """Run fn once on the host clock, its sort_rows launches counted;
+        check its result; log and keep seconds, bytes and launches."""
+        S.reset_launches()
+        t = time.perf_counter()
+        got = fn()
+        seconds = time.perf_counter() - t
+        launches = S.LAUNCHES["sort_rows"]
+        if want is not None and got != want:
+            raise AssertionError(f"{what}: the result differs from what was written")
+        if check is not None and not check(got):
+            raise AssertionError(f"{what}: the result fails its check")
+        size = len(got) if isinstance(got, (bytes, bytearray)) else \
+            sum(len(v) for v in got.values()) if isinstance(got, dict) else len(got[0])
+        log(f"{what}: {seconds:.3f} s (host clock), {size} bytes, {launches} sort_rows "
+            f"launches ({card_label})")
+        out["rows"].append({"what": what, "seconds": seconds, "bytes": size,
+                            "sort_rows_launches": launches})
+        return got
+
+    # (a) MSZIP: sort_rows at its rows, then the cabinet of the corpus
+    rows = torch.from_numpy(np.frombuffer(corpus, np.uint8).copy()).to(dev).view(
+        -1, cab.CFDATA_MAX)
+    h = HC.hashes(HC.u32_at(rows), DFC.HASHLOG)
+    key, bb = M.hash_key(h, DFC.HASHLOG)
+    pos = torch.arange(h.shape[1], dtype=torch.int32, device=dev).expand(h.shape).contiguous()
+    out["sort"]["cab_mszip_rows"] = sort_shape(S, key, (pos,), bb, "MSZIP's rows", card_label,
+                                               time_sort)
+    del rows, h, key, pos
+    big, spans = step(f"cab write, MSZIP, {len(files)} x 4 MiB, on the card, traced",
+                      lambda: spans_of(lambda: cab.write_cab(files, device=dev)))
+    out["cab_mszip_launches"] = out["rows"][-1]["sort_rows_launches"]
+    out["cab_mszip_spans_s"] = spans
+    log(f"cab write spans (s): { {k: round(v, 4) for k, v in sorted(spans.items())} }")
+    if out["cab_mszip_launches"] != 1:
+        raise AssertionError(f"cab write: {out['cab_mszip_launches']} row sorts, expected 1")
+    blocks = cfdata(big)
+    if len(blocks) != len(corpus) // cab.CFDATA_MAX:
+        raise AssertionError(f"cab write: {len(blocks)} CFDATA, expected "
+                             f"{len(corpus) // cab.CFDATA_MAX}")
+
+    def inflate_all():
+        done = bytearray()
+        for payload, cu in blocks:
+            z = zlib.decompressobj(-15, zdict=bytes(done[-cab.CFDATA_MAX:]))
+            piece = z.decompress(payload[2:]) + z.flush()
+            if payload[:2] != b"CK" or len(piece) != cu or not z.eof:
+                raise AssertionError(f"cab: CFDATA {len(done) // cab.CFDATA_MAX} does not "
+                                     f"inflate to its {cu} bytes under zlib")
+            done += piece
+        return bytes(done)
+    step(f"zlib's raw inflate of its {len(blocks)} CFDATA", inflate_all, corpus)
+    head = {"part0.bin": files["part0.bin"]}
+    small = step("cab write, MSZIP, the first 4 MiB, on the CPU",
+                 lambda: cab.write_cab(head, device="cpu"))
+    if cfdata(small) != blocks[:len(cfdata(small))]:
+        raise AssertionError("cab: the first 128 CFDATA on the card differ from the CPU run's")
+    log(f"cab: the card's first {len(cfdata(small))} CFDATA equal the CPU run's, byte for byte")
+    step("cab read (the port's host inflate), the first 4 MiB", lambda: cab.read_cab(small), head)
+    out["cab_bytes"] = len(big)
+    del big, blocks, small
+
+    # (b) round trips through the port's own readers
+    sample = {"sample.bin": b"".join(corpus[i * mib:i * mib + 32768] for i in range(8))}
+    arc = step("cab write, LZX, 256 KiB (host)", lambda: cab.write_cab(sample, "lzx", device=dev))
+    step("cab read, LZX", lambda: cab.read_cab(arc), sample)
+    arc = step("chm write, LZX, 256 KiB (host)", lambda: chm.write_chm(sample))
+    step("chm read", lambda: chm.read_chm(arc), sample)
+    one = {"one.bin": corpus[:mib]}
+    arc = step("lzh write, lh5, 1 MiB (host)", lambda: lzh.write_lzh(one))
+    step("lzh read", lambda: lzh.read_lzh(arc), one)
+    four = {"four.bin": corpus[:4 * mib]}
+    arc = step("rar write, RAR5, 4 MiB (host)", lambda: rar.write_rar5(four))
+    step("rar read", lambda: rar.read_rar(arc), four)
+
+    # (c) the CLI
+    work = Path(tempfile.mkdtemp(dir=_build.BUILD))
+
+    def cli(args, expect=0):
+        S.reset_launches()
+        err = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc, said = cli_run(args, dev)
+        seconds = time.perf_counter() - t
+        last = said.strip().splitlines()[-1] if said.strip() else ""
+        log(f"cli {' '.join(a.replace(str(work) + '/', '') for a in args)}: exit {rc} in "
+            f"{seconds:.3f} s (host clock), {S.LAUNCHES['sort_rows']} sort_rows launches: "
+            f"{last!r}")
+        out["rows"].append({"what": "cli " + " ".join(args[:2]), "seconds": seconds,
+                            "sort_rows_launches": S.LAUNCHES["sort_rows"]})
+        if rc != expect:
+            raise AssertionError(f"the CLI's {args} exited {rc}: {err.getvalue()[-300:]!r}")
+        return said, err.getvalue()
+
+    try:
+        part = corpus[:mib // 2]
+        src = work / "half.bin"
+        src.write_bytes(part)
+        for label, extra, name in (("cab", ["-tcab"], "half.cab"), ("rar", ["-trar"], "half.rar"),
+                                   ("rar stored", ["-trar", "-m0=copy"], "copy.rar")):
+            arc = str(work / name)
+            dest = work / f"out_{name}"
+            cli(["a", *extra, arc, str(src)])
+            said, _ = cli(["l", arc])
+            if f"{len(part):>10}  {'-':>8}  half.bin" not in said:
+                raise AssertionError(f"the CLI's l of {name} does not list half.bin")
+            said, _ = cli(["t", arc])
+            if not said.endswith("Everything is Ok\n"):
+                raise AssertionError(f"the CLI's t of {name} does not end in Everything is Ok")
+            cli(["x", arc, f"-o{dest}"])
+            if (dest / "half.bin").read_bytes() != part:
+                raise AssertionError(f"the CLI's {name} does not extract to its input")
+        if (work / "copy.rar").stat().st_size < len(part):
+            raise AssertionError("a -trar -m0=copy: the archive is smaller than its input")
+        # x -mmt1 streams each single-stream type of the corpus
+        streams = {
+            "corpus.lz4": lambda: LZ4F.compress_frame(corpus),
+            "corpus.zst": lambda: ZF.compress(corpus, level=3),
+            "corpus.gz": lambda: DFC.gzip_compress(corpus, device=dev),
+            "corpus.bz2": lambda: bz2.compress(corpus, 9),
+            "corpus.xz": lambda: lzma.compress(corpus, preset=1),
+        }
+        for name, make in streams.items():
+            (work / name).write_bytes(step(f"{name} made", make))
+            dest = work / "streamed"
+            cli(["x", "-mmt1", str(work / name), f"-o{dest}"])
+            if (dest / "corpus").read_bytes() != corpus:
+                raise AssertionError(f"x -mmt1 of {name} does not stream the corpus back")
+            (dest / "corpus").unlink()
+            (work / name).unlink()
+        # -v8m: volumes of 8 MiB, read back from the .001
+        (work / "corpus").write_bytes(corpus)
+        said, _ = cli(["a", "-tzstd", "-mx3", "-v8m", str(work / "vol.zst"), str(work / "corpus")])
+        nvol = len(list(work.glob("vol.zst.0*")))
+        cli(["x", str(work / "vol.zst.001"), f"-o{work / 'vols'}"])
+        # tpu7z names the output after the .001 name, no extension stripped
+        if (work / "vols" / "vol.zst.001").read_bytes() != corpus:
+            raise AssertionError("x of vol.zst.001 does not give the corpus")
+        log(f"a -v8m wrote {nvol} volumes; x of the .001 gives the corpus")
+        # -i!, -x! and -bb
+        sel = work / "sel"
+        sel.mkdir()
+        for name, off in (("a.txt", 0), ("b.log", 1), ("c.bin", 2), ("d.txt", 3)):
+            (sel / name).write_bytes(corpus[off * 256 * 1024:(off + 1) * 256 * 1024])
+        cwd = os.getcwd()
+        os.chdir(sel)
+        try:
+            cli(["a", "-ttar", "-i!*.txt", "-i!*.log", "sel.tar", "a.txt", "b.log", "c.bin",
+                 "d.txt"])
+            said, _ = cli(["l", "sel.tar"])
+            if "c.bin" in said or "b.log" not in said:
+                raise AssertionError("a -i!*.txt -i!*.log: the archive holds other files")
+            _, err = cli(["x", "sel.tar", "-x!*.log", "-bb", "-oout"])
+            if sorted(p.name for p in (sel / "out").iterdir()) != ["a.txt", "d.txt"] \
+                    or "%" not in err:
+                raise AssertionError("x -x!*.log -bb: other files, or no progress on stderr")
+        finally:
+            os.chdir(cwd)
+        log("the CLI's -i!, -x! and -bb select and show as tpu7z's")
+    finally:
+        shutil.rmtree(work)
+    return out
+
+
 def aes_passes(corpus, key, iv, dev, card_label):
     """The card's decrypt_cbc over more than one pass of CHUNK_BLOCKS
     blocks: the corpus encrypted natively (held to its Python twin in
@@ -2604,6 +2828,15 @@ def main() -> int:
     log(f"phase 14 in {time.time() - t:.1f} s")
     sort_entry["launches_by_path"].update(rpm_bzip2=ct["rpm_bzip2_launches"],
                                           xar_bzip2=ct["xar_bzip2_launches"])
+    # 15. the containers with their own codecs (MSZIP's parse on the card)
+    # and the rest of the CLI
+    t = time.time()
+    cc = codecs_cli_phase(corpus, dev, S, f"{card_name}, {power_limit}")
+    log(f"phase 15 in {time.time() - t:.1f} s")
+    sort_entry["max_abs_err"] = max(sort_entry["max_abs_err"],
+                                    cc["sort"]["cab_mszip_rows"]["max_abs_err"])
+    sort_entry["launches_by_path"].update(cab_mszip=cc["cab_mszip_launches"])
+    sort_entry["cab_mszip_rows"] = cc["sort"]["cab_mszip_rows"]
 
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 device verb: `a -tlz4 -mdev` and its other spellings write the bytes of
 tpu7z's `shard_compress_lz4_device` at make_mesh(1), which is what
 `python -m tpu7z.cli a -tlz4 -mdev` writes; `t` and `x` read them back;
-whatever the port does not serve exits with 2 and names tpu7z's CLI
-(.zst and LZ4 without the device: test_torch_zstd_cli.py).
+every other verb, type and switch against `python -m tpu7z.cli`'s
+outcome (.zst and LZ4 without the device: test_torch_zstd_cli.py; the
+streaming extract and plugins: test_torch_streamio.py, test_torch_plugins.py).
 The commands run in this process on the CPU (`main(..., device="cpu")`);
 run as a module with no card, the CLI fails instead of running on the CPU.
 """
@@ -127,22 +128,25 @@ def test_test_reports_a_corrupt_frame(workdir, want, capsys):
     assert "ERROR: lz4 frame" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("args,message", [
-    (["a", "-tlz4", "-mdev", "-v10m", "out.lz4", "input.bin"],
-     "switch -v10m is not served by the port"),
-    (["a", "-tcab", "out.cab", "input.bin"], "-tcab: the port does not write cab"),
-    (["a", "-trar", "out.rar", "input.bin"], "-trar: the port does not write rar"),
-    (["l", "out.cab"], "l: the port does not read cab"),
-    (["x", "-tlzh", "input.bin"], "input.bin: the port does not read lzh"),
-    (["t", "-tchm", "input.bin"], "input.bin: the port does not read chm"),
-])
-def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
-    """lzh, cab, chm and rar (whose codecs the port does not hold yet) and
-    the switches not yet ported: exit 2, naming tpu7z's CLI."""
-    assert main(args, device="cpu") == 2
-    err = capsys.readouterr().err
-    assert message in err and "use python -m tpu7z.cli" in err
-    assert [p.name for p in workdir.iterdir()] == ["input.bin"]
+@pytest.mark.parametrize("args", [
+    ["a", "-tlz4", "-mdev", "-v10k", "out.lz4", "input.bin"],
+    ["a", "-tcab", "out.cab", "input.bin"],
+    ["a", "-trar", "out.rar", "input.bin"],
+    ["l", "out.cab"],
+    ["x", "-tlzh", "input.bin"],
+    ["t", "-tchm", "input.bin"],
+], ids=["v10k", "tcab", "trar", "l_missing_cab", "x_tlzh", "t_tchm"])
+def test_once_refused_types_and_switches_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
+    """The requests the port refused with exit 2 before it served lzh,
+    cab, chm, rar and -v: tpu7z's exit code, standard output, last error
+    line and files (`l` of no archive, lzh and chm read from other bytes:
+    tpu7z's errors)."""
+    monkeypatch.delenv("TPU7Z_DEVICE", raising=False)
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary,
+        lambda d: (d / "input.bin").write_bytes(_input()), args)
+    assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref)
+    assert rc == (0 if args[0] == "a" else 2)
 
 
 @pytest.mark.parametrize("args", [
@@ -824,8 +828,9 @@ def test_hash_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
 
 def test_info_as_tpu7z(workdir, capsys):
     """`i`: tpu7z's codecs (method IDs, levels) and hashers; the banner is
-    the port's and the Formats line names the types the port serves (both
-    recorded as not reproduced)."""
+    the port's, and the Formats line is tpu7z's, then the other types the
+    port serves, in tpu7z's sniff order (both recorded as not
+    reproduced)."""
     assert jmain(["i"]) == 0
     ref = capsys.readouterr().out.splitlines()
     assert main(["i"], device="cpu") == 0
@@ -833,11 +838,11 @@ def test_info_as_tpu7z(workdir, capsys):
     assert len(got) == len(ref) and got[1:-1] == ref[1:-1]
     assert got[0] == "tpu7z_torch (the PyTorch/CUDA port of tpu7z)"
     assert got[-1] == ("Formats: 7z zstd lz4 lz5 lizard brotli xz bzip2 gzip tar zip squashfs "
-                       "cpio ar rpm iso xar Z lzip wim ext nsis swf flv arj qcow vhdx vmdk vdi "
-                       "udf elf dmg hfs macho pe fat ntfs apfs gpt vhd ihex mbr base64")
-    # tpu7z's line, in its order, but for lzh, which the port does not read
-    ref_types = [t for t in ref[-1].split()[1:] if t != "lzh"]
-    assert got[-1].split()[1:1 + len(ref_types)] == ref_types
+                       "cpio ar rpm iso xar lzh Z lzip wim cab ext rar chm nsis swf flv arj qcow "
+                       "vhdx vmdk vdi udf elf dmg hfs macho pe fat ntfs apfs gpt vhd ihex mbr "
+                       "base64")
+    # tpu7z's line, whole and in its order, first
+    assert got[-1].startswith(ref[-1] + " ")
     assert sum("  levels " in line for line in got) == 13
 
 
@@ -980,8 +985,9 @@ def containers(tmp_path_factory):
     from tests.test_ntfs import _mk_volume
     from tests.test_torch_disk_misc import _flv, _macho, _pe, _vdi, _vhdx, _vmdk
     from tests.test_torch_unix_archives import _rpm
-    from tpu7z.containers import (apfs, ar, cpio, disk, dmg, fat, hfs, iso, misc, squashfs,
-                                  udf, wim, xar)
+    from tests.test_rar import _mk_rar4
+    from tpu7z.containers import (apfs, ar, cab, chm, cpio, disk, dmg, fat, hfs, iso, lzh, misc,
+                                  rar, squashfs, udf, wim, xar)
     from tpu7z.containers.sevenzip import write_archive
     import base64
     import bz2
@@ -1005,6 +1011,10 @@ def containers(tmp_path_factory):
         "setup.exe": b"MZ" + _mk_nonsolid_deflate()[2:], "solid.exe": b"MZ" + _mk_solid_lzma()[2:],
         "sfx.exe": _pe() + write_archive(files, method="copy"),
         "mbr_image": _mk_mbr()[0], "gpt_image": _mk_gpt()[0], "a.flv": _flv(),
+        "a.lzh": lzh.write_lzh(files), "a.cab": cab.write_cab(files),
+        "lzx.cab": cab.write_cab(files, "lzx"), "stored.cab": cab.write_cab(files, "none"),
+        "a.chm": chm.write_chm(files), "a.rar": rar.write_rar5(files),
+        "store.rar": rar.write_rar5_store(files), "old.rar": _mk_rar4(files),
     }
     if _elf():
         made["a.so"] = _elf()
@@ -1031,7 +1041,8 @@ CONTAINER_NAMES = ["a.sqfs", "a.cpio", "a.deb", "a.a", "a.rpm", "a.iso", "a.xar"
                    "a.ext4", "a.vhd", "a.qcow2", "a.vdi", "a.vmdk", "a.vhdx", "a.fat", "a.udf",
                    "a.swf", "a.hex", "a.b64", "a.exe", "a.so", "a.dylib", "a.arj", "a.dmg",
                    "a.hfs", "a.ntfs", "a.apfs", "setup.exe", "solid.exe", "sfx.exe", "mbr_image",
-                   "gpt_image", "a.flv"]
+                   "gpt_image", "a.flv", "a.lzh", "a.cab", "lzx.cab", "stored.cab", "a.chm",
+                   "a.rar", "store.rar", "old.rar"]
 
 
 @pytest.mark.parametrize("verb", [["t"], ["l"], ["x", "-oout"]], ids=["t", "l", "x"])
@@ -1052,7 +1063,7 @@ def test_read_containers_as_tpu7z(tmp_path, monkeypatch, capsysbinary, container
 SNIFFED = ["a.sqfs", "a.cpio", "a.deb", "a.rpm", "a.iso", "a.xar", "a.wim", "a.ext4", "a.vhd",
            "a.qcow2", "a.vdi", "a.vmdk", "a.vhdx", "a.fat", "a.udf", "a.swf", "a.hex", "a.exe",
            "a.so", "a.dylib", "a.arj", "a.dmg", "a.hfs", "a.ntfs", "a.apfs", "setup.exe",
-           "a.flv"]
+           "a.flv", "a.lzh", "a.cab", "lzx.cab", "a.chm", "a.rar", "old.rar"]
 
 
 @pytest.mark.parametrize("name", SNIFFED)
@@ -1080,13 +1091,20 @@ def test_containers_found_by_magic_as_tpu7z(tmp_path, monkeypatch, capsysbinary,
     ["a", "-tihex", "-so", "o.hex", "d"], ["a", "-tudf", "-so", "o.udf", "d"],
     ["a", "-tsquashfs", "o.sqfs", "input.bin"], ["a", "o.iso", "input.bin"],
     ["a", "-tlzh", "o.lzh", "input.bin"], ["a", "-tWIM", "o.wim", "input.bin"],
+    ["a", "-tcab", "o.cab", "input.bin", "d"], ["a", "o.cab", "input.bin"],
+    ["a", "-tcab", "-so", "o.cab", "d"], ["a", "-trar", "o.rar", "input.bin", "d"],
+    ["a", "o.rar", "input.bin"], ["a", "-trar", "-m0=copy", "o.rar", "input.bin", "d"],
+    ["a", "-trar", "-mx0", "o.rar", "input.bin"], ["a", "-trar", "-mx9", "-m0=lzma", "o.rar", "d"],
+    ["a", "-tchm", "o.chm", "input.bin"], ["a", "-tCAB", "o.cab", "input.bin"],
 ], ids=["wim", "wim_by_name", "udf", "fat", "arj", "vhd", "vhd_many", "ihex", "ihex_many_so",
-        "udf_so", "squashfs_none", "iso_none", "lzh_none", "WIM"])
+        "udf_so", "squashfs_none", "iso_none", "lzh_none", "WIM", "cab", "cab_by_name", "cab_so",
+        "rar", "rar_by_name", "rar_copy", "rar_mx0", "rar_other_method", "chm_none", "CAB"])
 def test_add_containers_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
-    """`a` of each type tpu7z's `a` writes (wim, udf, fat, arj, vhd, ihex),
-    and of types it does not (squashfs, iso, lzh: its unknown-codec
-    error): tpu7z's exit code, stdout, stderr and bytes; then `t` of the
-    port's archive, as tpu7z tests it."""
+    """`a` of each type tpu7z's `a` writes (wim, udf, fat, arj, vhd, ihex,
+    cab with MSZIP, rar: RAR5, stored with -m0=copy or -mx0), and of types
+    it does not (squashfs, iso, lzh, chm, -tCAB: its unknown-codec error):
+    tpu7z's exit code, stdout, stderr and bytes; then `t` of the port's
+    archive, as tpu7z tests it."""
     monkeypatch.delenv("TPU7Z_DEVICE", raising=False)
     monkeypatch.setattr("time.time", lambda: 1_700_000_000.5)   # arj stamps its headers
     (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
@@ -1125,3 +1143,177 @@ def test_zws_swf_exits_2_where_tpu7z_raises(workdir, capsys):
     capsys.readouterr()
     assert main(["t", "m.swf"], device="cpu") == 2
     assert capsys.readouterr().err == "ERROR: swf: ZWS (LZMA) body\n"
+
+
+# --- the rest of tpu7z's CLI: volumes, selection, progress, parsing ---
+
+@pytest.mark.parametrize("args", [
+    ["a", "-v10k", "o.7z", "input.bin", "d"], ["a", "-tzip", "-v3000b", "o.zip", "input.bin"],
+    ["a", "-v1m", "o.zst", "input.bin"], ["a", "-tcab", "-v4k", "o.cab", "input.bin", "d"],
+    ["a", "-v0", "o.zst", "input.bin"], ["a", "-v10k", "-so", "o.7z", "input.bin"],
+], ids=["7z", "zip", "one_volume", "cab", "v0", "so_wins"])
+def test_add_volumes_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
+    """-v{size}: archive.001, .002, ... of that size but the last, and
+    tpu7z's line; -v0 writes one archive, -so writes to standard output."""
+    monkeypatch.delenv("TPU7Z_DEVICE", raising=False)
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, _inputs, args)
+    assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref) and rc == 0
+
+
+def test_bad_volume_size_exits_2_where_tpu7z_raises(workdir, capsys):
+    """A bare -v number is a log size, as -md's: over 63, tpu7z's switch
+    parser raises out of its CLI (a traceback, as for a bad -mmt); the
+    port exits 2 with the same message."""
+    from tpu7z.utils.errors import TpuzError as JErr
+    with pytest.raises(JErr, match="log size 3000 out of range"):
+        jmain(["a", "-v3000", "o.7z", "input.bin"])
+    capsys.readouterr()
+    assert main(["a", "-v3000", "o.7z", "input.bin"], device="cpu") == 2
+    assert capsys.readouterr().err == "ERROR: log size 3000 out of range\n"
+    assert not list(workdir.glob("o.7z*"))
+
+
+def _volumes(d):
+    from tpu7z.containers import cab as jcab
+    from tpu7z.containers.sevenzip import write_archive as jwrite
+    from tpu7z.models.zstd import frame as jzst
+    files = {"a.txt": _input()[:9000], "b.bin": _input()[-6000:]}
+    for name, blob in (("s.7z", jwrite(files)), ("s.cab", jcab.write_cab(files)),
+                       ("s.zst", jzst.compress(_input()))):
+        for i, off in enumerate(range(0, len(blob), 4000)):
+            (d / f"{name}.{i + 1:03d}").write_bytes(blob[off:off + 4000])
+    (d / "gap.cab.001").write_bytes(jcab.write_cab(files)[:4000])
+    (d / "gap.cab.003").write_bytes(b"never read")
+
+
+@pytest.mark.parametrize("args", [
+    ["t", "s.7z.001"], ["x", "s.7z.001", "-oout"], ["l", "s.7z.001"], ["t", "s.cab.001"],
+    ["x", "s.cab.001", "-oout"], ["l", "s.cab.001"], ["x", "s.zst.001", "-oout"],
+    ["x", "s.zst.001", "-mmt1", "-oout"], ["t", "s.cab.002"], ["t", "gap.cab.001"],
+    ["t", "missing.001"]],
+    ids=["t_7z", "x_7z", "l_7z", "t_cab", "x_cab", "l_cab", "x_zst", "x_zst_mmt1", "t_second",
+         "t_gap", "t_missing"])
+def test_read_volumes_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
+    """A `.001` name opens the whole set (up to its first gap): tpu7z's
+    exit codes, lines and files; `l` of a .7z reads the first volume only,
+    as tpu7z's does, and a `.001` stream is not streamed at -mmt1."""
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, _volumes, args)
+    assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref)
+
+
+@pytest.mark.parametrize("args", [
+    ["a", "-i!*.txt", "o.7z", "input.bin", "d"], ["a", "-x!*.bin", "o.zip", "input.bin", "d"],
+    ["a", "-i!d/*", "-x!*empty", "o.tar", "d"], ["a", "-x!*", "o.7z", "input.bin"],
+    ["a", "-i!input.bin", "-r", "o.cab", "input.bin", "d"],
+    ["a", "-i!*.bin", "-x!input.bin", "o.zst", "input.bin", "d"],
+], ids=["include_txt", "exclude_bin", "include_and_exclude", "exclude_all", "include_one",
+        "exclude_wins"])
+def test_add_selection_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
+    """-i! keeps the inputs it matches, by name or last part, and -x!
+    drops them, excludes first: tpu7z's archive, lines and exit code."""
+    monkeypatch.delenv("TPU7Z_DEVICE", raising=False)
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, _inputs, args)
+    assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref)
+
+
+def _selection_archives(d):
+    from tpu7z.containers import rar as jrar
+    from tpu7z.containers import zip as jzip
+    from tpu7z.containers.sevenzip import write_archive as jwrite
+    from tpu7z.models.zstd import frame as jzst
+    files = {"a.txt": b"text " * 300, "sub/b.log": b"log line\n" * 90, "c.bin": _input()[:3000],
+             "sub/deep/d.txt": b"deeper " * 40}
+    (d / "s.7z").write_bytes(jwrite(files))
+    (d / "s.zip").write_bytes(jzip.write_zip(files))
+    (d / "s.rar").write_bytes(jrar.write_rar5(files))
+    (d / "s.txt.zst").write_bytes(jzst.compress(b"one stream " * 100))
+
+
+@pytest.mark.parametrize("verb", [["t"], ["x", "-oout"], ["e", "-oout"], ["x", "-so"], ["l"]],
+                         ids=["t", "x", "e", "x_so", "l"])
+@pytest.mark.parametrize("switches", [["-i!*.txt"], ["-x!*.log"], ["-i!sub/*", "-x!*.log"],
+                                      ["-i!*.txt", "-i!c.*"], ["-x!*"]],
+                         ids=["include", "exclude", "both", "two_includes", "exclude_all"])
+@pytest.mark.parametrize("name", ["s.7z", "s.zip", "s.rar", "s.txt.zst"])
+def test_read_selection_as_tpu7z(tmp_path, monkeypatch, capsysbinary, name, switches, verb):
+    """-i!/-x! in `t`, `x`, `e` and -so (`l` lists every file, as tpu7z's
+    does): tpu7z's counts, lines and files."""
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, _selection_archives,
+        [verb[0], name, *switches, *verb[1:]])
+    assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref) and rc == 0
+
+
+@pytest.mark.parametrize("switch", ["-bb", "-bb3", "-bd", "-bb -bd", "-bd -bb"])
+@pytest.mark.parametrize("name", ["s.7z", "s.zip", "s.rar", "s.txt.zst"])
+def test_progress_as_tpu7z(tmp_path, monkeypatch, capsys, name, switch):
+    """`x` with -bb writes tpu7z's percent lines to standard error, with
+    -bd nothing; the later switch wins."""
+    said = []
+    for which, run in (("ref", jmain), ("port", lambda a: main(a, device="cpu"))):
+        d = tmp_path / which
+        d.mkdir()
+        _selection_archives(d)
+        monkeypatch.chdir(d)
+        capsys.readouterr()
+        rc = run(["x", name, "-oout", *switch.split()])
+        cap = capsys.readouterr()
+        said.append((rc, cap.out, cap.err))
+    assert said[0] == said[1]
+    assert ("%" in said[1][2]) == switch.split()[-1].startswith("-bb")
+
+
+@pytest.mark.parametrize("args", [
+    ["a", "-q", "-tzstd", "o.zst", "input.bin"], ["t", "-bt", "-zz", "o.zst"],
+    ["a", "-v", "-vx", "o.7z", "input.bin"], ["a", "-m1=lzma", "-mfb=64", "o.7z", "input.bin"],
+    ["a", "-sdel", "-sccUTF-8", "o.zip", "input.bin"], ["z", "o.zst"], ["z", "-q", "o.zst"],
+    ["help"], ["A", "o.7z", "input.bin"], ["x"], ["t"], ["l"], ["a"],
+], ids=["q", "bt_zz", "v_without_size", "m1_mfb", "sdel_scc", "z", "z_with_switch", "help",
+        "A", "x_no_archive", "t_no_archive", "l_no_archive", "a_no_archive"])
+def test_parse_as_tpu7z(tmp_path, monkeypatch, capsysbinary, args):
+    """A switch the CLI does not know: tpu7z's warning on standard error,
+    the switch ignored; a command it does not know: `unknown command`,
+    exit 1; a verb without its archive: tpu7z's error, exit 2."""
+    monkeypatch.delenv("TPU7Z_DEVICE", raising=False)
+
+    def prepare(d):
+        _inputs(d)
+        from tpu7z.models.zstd import frame as jzst
+        (d / "o.zst").write_bytes(jzst.compress(b"z" * 1000))
+    runs = []
+    for which, run in (("ref", jmain), ("port", lambda a: main(a, device="cpu"))):
+        d = tmp_path / which
+        d.mkdir()
+        prepare(d)
+        monkeypatch.chdir(d)
+        capsysbinary.readouterr()
+        rc = run(list(args))
+        cap = capsysbinary.readouterr()
+        runs.append((rc, cap.out, cap.err, {str(p.relative_to(d)): p.read_bytes()
+                                            for p in sorted(d.rglob("*")) if p.is_file()}))
+    assert runs[0] == runs[1]
+    rc, out, err, _ = runs[1]
+    if args[0] in ("z", "help", "A"):
+        assert rc == 1 and err.decode().endswith(f"unknown command {args[0]!r}\n")
+    for a in args[1:]:
+        if a.startswith("-") and a not in ("-tzstd",):
+            assert f"warning: ignoring switch {a}\n".encode() in err
+
+
+@pytest.mark.parametrize("name,write", [("o.cab", "cab"), ("o.rar", "rar")])
+def test_update_cab_and_rar_as_tpu7z(tmp_path, monkeypatch, capsysbinary, name, write):
+    """`u` of a .cab and a .rar: the inputs overlaid on the archive's
+    files and the whole rewritten, as tpu7z's."""
+    from tpu7z.containers import cab as jcab
+    from tpu7z.containers import rar as jrar
+
+    def prepare(d):
+        _inputs(d)
+        old = {"old.txt": b"o" * 99, "input.bin": b"older"}
+        (d / name).write_bytes(jcab.write_cab(old) if write == "cab" else jrar.write_rar5(old))
+    (ref_rc, ref_out, ref_err, ref), (rc, out, err, port) = _run_both(
+        tmp_path, monkeypatch, capsysbinary, prepare, ["u", name, "input.bin", "d"])
+    assert (rc, out, err, port) == (ref_rc, ref_out, ref_err, ref) and rc == 0

@@ -145,16 +145,13 @@ def test_corrupt_lz4_exits_2(workdir, capsys, kind, message, mt):
      "ERROR: unknown codec 'cpio'; available: ['brotli', "),
     (["a", "-m0=lzma", "out.xz", "input.bin"],
      "ERROR: unknown codec 'lzma'; available: ['brotli', "),
-    (["a", "-tzstd", "-i!*.bin", "out.zst", "input.bin"],
-     "switch -i!*.bin is not served by the port; use python -m tpu7z.cli"),
+    (["a", "-tzstd", "-i!*.txt", "out.zst", "input.bin"], "ERROR: a: no input files"),
 ])
 def test_what_the_port_does_not_serve_exits_2(workdir, capsys, args, message):
-    """A switch not yet ported exits 2 and names tpu7z's CLI; a writer
-    tpu7z lacks (cpio) or a codec its registry lacks (lzma) exits 2 with
-    tpu7z's own message."""
+    """A writer tpu7z lacks (cpio), a codec its registry lacks (lzma) and
+    an -i! that keeps no input exit 2 with tpu7z's own message."""
     assert main(args, device="cpu") == 2
     err = capsys.readouterr().err
     assert message in err
-    if "-tzstd" not in args:
-        assert jmain(args) == 2 and capsys.readouterr().err == err
+    assert jmain(args) == 2 and capsys.readouterr().err == err
     assert [p.name for p in workdir.iterdir()] == ["input.bin"]

@@ -1,12 +1,13 @@
-"""The port's command line: tpu7z's CLI for .7z, .zip, .tar, the
-single streams, the bare codec streams, and tpu7z's containers over the
-codecs the port holds: squashfs, cpio, ar (.deb), rpm, iso, xar, wim,
-ext, the disk images (mbr, gpt, vhd, qcow, vdi, vmdk, vhdx), fat, udf,
-swf, flv, ihex, base64, pe, elf, macho, arj, dmg, hfs, ntfs, apfs and nsis.
+"""The port's command line, the whole of tpu7z's CLI: .7z, .zip, .tar,
+the single streams, the bare codec streams, and tpu7z's containers:
+squashfs, cpio, ar (.deb), rpm, iso, xar, lzh, wim, cab, ext, the disk
+images (mbr, gpt, vhd, qcow, vdi, vmdk, vhdx), fat, udf, swf, flv, ihex,
+base64, pe, elf, macho, arj, rar, chm, dmg, hfs, ntfs, apfs and nsis.
 
     python -m tpu7z_torch.cli a [-t7z] [-m0={method}] [-mx{N}] [-p{password}] [-mhe] archive.7z inputs...
     python -m tpu7z_torch.cli a -tzip [-m0={method}] [-mx{N}] archive.zip inputs...
-    python -m tpu7z_torch.cli a -ttar|-twim|-tudf|-tfat|-tarj archive inputs...
+    python -m tpu7z_torch.cli a -ttar|-twim|-tudf|-tfat|-tarj|-tcab archive inputs...
+    python -m tpu7z_torch.cli a -trar [-m0=copy|-mx0] archive.rar inputs...
     python -m tpu7z_torch.cli a -tvhd|-tihex archive input
     python -m tpu7z_torch.cli a -tlz4 [-mdev] archive.lz4 input
     python -m tpu7z_torch.cli a -tzstd [-mx{N}] [-mmt{N}] [-m0=zstd:wlog=N] archive.zst input
@@ -22,6 +23,8 @@ swf, flv, ihex, base64, pe, elf, macho, arj, dmg, hfs, ntfs, apfs and nsis.
     python -m tpu7z_torch.cli h files...
     python -m tpu7z_torch.cli i
     python -m tpu7z_torch.cli b [codec|hasher] [-md{size}] [-mx{N}]
+  and with any verb: -i!{wildcard} -x!{wildcard} (a, u, t, x, e),
+  -v{size} (a, u), -bb / -bd (x, e), -y, -r
 
 The archive's type comes from -t, as typed, else from its name (tpu7z's
 table of extensions), else, for `t`, `x` and `l`, from its first bytes
@@ -61,6 +64,10 @@ temporary file and renamed over its name, or to standard output with -so.
       host; -tvhd: the one input as a fixed VHD disk; -tihex: the one
       input as Intel HEX records (containers/wim.py, udf.py, fat.py,
       misc.py, disk.py);
+  -tcab (.cab): one MSZIP folder, every 32 KiB chunk a row of one deflate
+      parse on the card (containers/cab.py); -trar (.rar): RAR5, each
+      member LZ-coded on the host (models/rar5.py) or stored where that
+      does not shrink it, every member stored with -m0=copy or -mx0;
   -tgzip: DEFLATE on the card in tpu7z's gzip member (the level ignored);
   -tbzip2: bzip2 at -mx{N} (default 5), its block sort on the card;
   -tbrotli (.br): the brotli-mt container at quality min(N, 11) (default
@@ -94,6 +101,21 @@ extension stripped in turn, at -mmt1 for .lz4, .zst, .xz, .gz and .bz2
 name is the archive itself, `.out` is added (tpu7z would overwrite its
 input). `t -scrc` also prints the content's hash: CRC32, the hasher named,
 or with `*` every one (ops/hashers.py).
+At -mmt1 `x` streams a .lz4, .zst, .gz, .bz2 or .xz into its file, unit by
+unit from a memory map (utils/streamio.py: the host libraries for LZ4 and
+zstd, the standard library for the others), as tpu7z does, but checking
+a .lz4's checksums and content size and leaving no partial file where the
+stream is found corrupt.
+-i!{wildcard} keeps only the files it matches and -x!{wildcard} drops
+those it matches (a name or its last part, fnmatch; excludes win), in
+`a`, `u`, `t`, `x` and `e`. -v{size} has `a` write archive.001,
+archive.002, ... of that size; a `.001` set is read whole (but for `l`
+of a .7z, which reads the first volume, as tpu7z's does).
+-bb shows `x`'s progress on standard error, -bd hides it (else it shows
+on a tty). Codec plugins (utils/plugins.py: $TPU7Z_PLUGIN_DIR,
+~/.tpu7z/plugins) are loaded before the verb runs. A switch the CLI does
+not know is ignored with a warning, and a command it does not know exits
+with 1, as in tpu7z.
 `u` overlays the inputs on the archive's files, if it exists, and
 rewrites it as `a` would. `l` lists a .7z's files, and with -slt their
 technical lines, and any other archive's or stream's files with their
@@ -102,24 +124,24 @@ the codecs, hashers and types (the port's own banner); `b` benchmarks
 every codec at its low, mid and high levels (-mx: one level) over
 make_corpus(-md size, 4 MiB by default), each round trip checked, then
 every hasher: tpu7z's lines, with this machine's rates.
-The rest of tpu7z's CLI (lzh, cab, chm and rar, and the switches -i!, -x!,
--v, -bb, -bd and the streaming extract) is `python -m tpu7z.cli`'s:
-asking the port for it exits with 2 and says so. The bytes written are
-tpu7z's. The .7z, .zip, .gz, .bz2, .br, .lz5, .liz and .lz verbs, the
-bzip2 payloads of the containers, BLAKE3 and `b`'s tensor stages run on
-the card.
+The bytes written are tpu7z's. The .7z, .zip, .gz, .bz2, .br, .lz5, .liz,
+.lz and .cab writes, the bzip2 payloads of the containers, BLAKE3 and
+`b`'s tensor stages run on the card; lzh, chm and rar and the LZX cab are
+host code.
 """
 
 from __future__ import annotations
 
+import fnmatch
 import math
 import os
+import re
 import sys
 import time
 from dataclasses import dataclass, field
 
-from ..containers import (apfs, ar, cpio, disk, dmg, ext, fat, hfs, iso, misc, nsis, ntfs,
-                          rpm, squashfs, udf, wim, xar, xz)
+from ..containers import (apfs, ar, cab, chm, cpio, disk, dmg, ext, fat, hfs, iso, lzh, misc,
+                          nsis, ntfs, rar, rpm, squashfs, udf, wim, xar, xz)
 from ..containers.sevenzip import SevenZipReader, write_archive
 from ..containers.tar import read_tar, write_tar
 from ..containers.zip import read_zip, write_zip
@@ -130,11 +152,11 @@ from ..ops.hashers import HASHERS
 from ..ops.hashing import crc32_native
 from ..parallel import decode
 from ..parallel.sharded import shard_compress_lz4_device
+from ..utils import plugins, streamio
 from ..utils.corpus import make_corpus
 from ..utils.errors import TpuzError
 from ..utils.methodprops import parse_method_spec, parse_mt, parse_size
 
-ELSEWHERE = "use python -m tpu7z.cli"
 BANNER = "tpu7z_torch (the PyTorch/CUDA port of tpu7z)"
 # tpu7z's type names by extension (tpu7z/cli/main.py:25-43)
 EXT_TYPES = {
@@ -158,9 +180,7 @@ EXT_TYPES = {
 # where the content decides before the extension: an .exe may hold an
 # NSIS installer or a 7z
 AMBIGUOUS_EXTS = {".exe": "pe", ".dll": "pe", ".sys": "pe"}
-# tpu7z's magic tests (tpu7z/cli/main.py:64-161), in its order; the types
-# among them that the port does not read (UNPORTED) are named, and
-# refused, as tpu7z names them
+# tpu7z's magic tests (tpu7z/cli/main.py:64-161), in its order
 MAGICS = (
     ("7z", lambda d: d[:6] == b"7z\xbc\xaf\x27\x1c"),
     ("zstd", lambda d: d[:4] == zframe.MAGIC.to_bytes(4, "little")),
@@ -211,8 +231,6 @@ MAGICS = (
     ("ihex", misc.is_ihex),
     ("mbr", disk.is_mbr),
 )
-# the types tpu7z reads whose codecs the port does not hold yet
-UNPORTED = ("lzh", "cab", "chm", "rar")
 # tpu7z's container readers (tpu7z/cli/main.py:446-523), each to {name:
 # bytes}; those in ON_CARD_READERS run their codec's tensor stages on the
 # device (zip's deflate and bzip2, rpm's and xar's bzip2)
@@ -226,7 +244,8 @@ READERS = {
     "base64": misc.read_base64, "pe": misc.read_pe, "elf": misc.read_elf,
     "macho": misc.read_macho, "arj": misc.read_arj, "fat": fat.read_fat,
     "ntfs": ntfs.read_ntfs, "udf": udf.read_udf, "dmg": dmg.read_dmg, "hfs": hfs.read_hfs,
-    "nsis": nsis.read_nsis, "apfs": apfs.read_apfs,
+    "nsis": nsis.read_nsis, "apfs": apfs.read_apfs, "lzh": lzh.read_lzh, "cab": cab.read_cab,
+    "chm": chm.read_chm, "rar": rar.read_rar,
 }
 ON_CARD_READERS = ("zip", "rpm", "xar")
 # tpu7z's container writers in `a` (tpu7z/cli/main.py:342-369); vhd and
@@ -236,17 +255,15 @@ WRITERS = {"tar": write_tar, "wim": wim.write_wim, "udf": udf.write_udf,
 ONE_INPUT_WRITERS = {"vhd": ("single disk image expected", disk.write_vhd_fixed),
                      "ihex": ("single input expected", misc.write_ihex)}
 ARCHIVES = ("7z", *READERS)      # many files, each under its own name
-# `i`'s Formats line: tpu7z's (tpu7z/cli/main.py:689-690) without lzh,
-# then the other types the port serves, in tpu7z's sniff order
+# `i`'s Formats line: tpu7z's (tpu7z/cli/main.py:689-690), then the other
+# types the port serves, in tpu7z's sniff order
 FORMATS = ("7z", "zstd", "lz4", "lz5", "lizard", "brotli", "xz", "bzip2", "gzip", "tar", "zip",
-           "squashfs", "cpio", "ar", "rpm", "iso", "xar", "Z", "lzip", "wim", "ext", "nsis",
-           "swf", "flv", "arj", "qcow", "vhdx", "vmdk", "vdi", "udf", "elf", "dmg", "hfs",
-           "macho", "pe", "fat", "ntfs", "apfs", "gpt", "vhd", "ihex", "mbr", "base64")
+           "squashfs", "cpio", "ar", "rpm", "iso", "xar", "lzh", "Z", "lzip", "wim", "cab",
+           "ext", "rar", "chm", "nsis", "swf", "flv", "arj", "qcow", "vhdx", "vmdk", "vdi", "udf",
+           "elf", "dmg", "hfs", "macho", "pe", "fat", "ntfs", "apfs", "gpt", "vhd", "ihex", "mbr",
+           "base64")
 # the codecs whose compress takes the device for its tensor stages
 ON_CARD = ("deflate", "gzip", "bzip2", "brotli", "lz5", "lizard", "lzip")
-# the types tpu7z's `x` streams at -mmt1 (tpu7z/utils/streamio.py
-# STREAMABLE), naming their output by STRIP_ONE
-STREAMED = ("lz4", "zstd", "gzip", "bzip2", "xz")
 # tpu7z's .zip method names (tpu7z/cli/main.py:336-337); another is deflate
 ZIP_METHODS = {"copy": 0, "deflate": 8, "bzip2": 12, "lzma": 14, "zstd": 93, "xz": 95,
                "ppmd": 98}
@@ -261,7 +278,7 @@ FILETIME_EPOCH = 11644473600  # seconds between 1601 and 1970
 
 
 class UsageError(Exception):
-    """A request the port's CLI does not serve; exit code 2."""
+    """A request the CLI refuses before it reads an archive; exit code 2."""
 
 
 @dataclass
@@ -281,10 +298,15 @@ class Options:
     slt: bool = False
     scrc: str | None = None
     outdir: str = "."
+    include: list = field(default_factory=list)    # -i! wildcards
+    exclude: list = field(default_factory=list)    # -x! wildcards
+    volume: int | None = None                      # -v{size}: volumes of this size
+    progress: bool | None = None                   # -bb on, -bd off, else on a tty
 
 
 def _parse(args) -> tuple[Options, list[str]]:
-    """tpu7z's switches that the port serves (tpu7z/cli/main.py:179-236)."""
+    """tpu7z's switches, in its order (tpu7z/cli/main.py:197-253): another
+    is ignored with tpu7z's warning on standard error."""
     opts, rest = Options(), []
     for a in args:
         if a.startswith("-t"):
@@ -312,14 +334,26 @@ def _parse(args) -> tuple[Options, list[str]]:
             opts.stdin = True
         elif a == "-so":
             opts.stdout = True
+        elif a == "-y":
+            pass
+        elif a.startswith("-i!"):
+            opts.include.append(a[3:])
+        elif a.startswith("-x!"):
+            opts.exclude.append(a[3:])
+        elif a in ("-r", "-r0"):
+            pass     # directories are always walked, as in tpu7z
         elif a == "-slt":
             opts.slt = True
+        elif a.startswith("-bb"):
+            opts.progress = True
+        elif a == "-bd":
+            opts.progress = False
+        elif a.startswith("-v") and len(a) > 2 and a[2].isdigit():
+            opts.volume = parse_size(a[2:])
         elif a.startswith("-scrc"):
             opts.scrc = a[5:].lstrip("=") or "CRC32"
-        elif a in ("-y", "-r", "-r0"):
-            pass
         elif a.startswith("-"):
-            raise UsageError(f"switch {a} is not served by the port; {ELSEWHERE}")
+            print(f"warning: ignoring switch {a}", file=sys.stderr)
         else:
             rest.append(a)
     return opts, rest
@@ -368,6 +402,44 @@ def _read_input(opts: Options, inputs) -> dict[str, bytes]:
     return files
 
 
+def _name_selected(opts: Options, name: str) -> bool:
+    """tpu7z's -i!/-x! selection (tpu7z/cli/main.py:256-267): a name, or
+    its last part, matched by fnmatch; excludes always win, includes
+    narrow."""
+    base = name.replace("\\", "/").split("/")[-1]
+    for pat in opts.exclude:
+        if fnmatch.fnmatch(name, pat) or fnmatch.fnmatch(base, pat):
+            return False
+    if opts.include:
+        return any(fnmatch.fnmatch(name, pat) or fnmatch.fnmatch(base, pat)
+                   for pat in opts.include)
+    return True
+
+
+class PercentPrinter:
+    """tpu7z's live percent display (tpu7z/cli/main.py:270-294): on
+    standard error, on a tty or with -bb, off with -bd."""
+
+    def __init__(self, total: int, enabled: bool | None = None):
+        self.total = max(total, 1)
+        self.done = 0
+        self.enabled = sys.stderr.isatty() if enabled is None else enabled
+        self._last = -1
+
+    def add(self, nbytes: int, name: str = "") -> None:
+        self.done += nbytes
+        pct = min(100 * self.done // self.total, 100)
+        if self.enabled and pct != self._last:
+            self._last = pct
+            sys.stderr.write(f"\r{pct:3d}% {name[:60]:<60}")
+            sys.stderr.flush()
+
+    def finish(self) -> None:
+        if self.enabled and self._last >= 0:
+            sys.stderr.write("\r" + " " * 66 + "\r")
+            sys.stderr.flush()
+
+
 def _one_stream(files: dict, atype: str) -> bytes:
     if len(files) > 1:
         raise TpuzError(f"-t{atype}: single-stream format, got {len(files)} inputs")
@@ -387,9 +459,7 @@ def _add(opts: Options, args, device, update: bool = False) -> int:
     # nothing where it ignores it: lz4's device coder takes the stream
     # whatever -m0 names; the other types have no device coder
     dev = (opts.device or bool(opts.props.get("dev"))) and atype == "lz4"
-    if atype in ("cab", "rar"):
-        raise UsageError(f"-t{atype}: the port does not write {atype}; {ELSEWHERE}")
-    files = _read_input(opts, inputs)
+    files = {k: v for k, v in _read_input(opts, inputs).items() if _name_selected(opts, k)}
     if update and os.path.exists(archive) and not opts.stdout:
         files = {**_open(opts, archive, device)[1], **files}
     if not files:
@@ -401,6 +471,12 @@ def _add(opts: Options, args, device, update: bool = False) -> int:
     elif atype == "zip":
         out = write_zip(files, method=ZIP_METHODS.get(opts.method or "deflate", 8),
                         level=opts.level or 6, device=device)
+    elif atype == "cab":
+        # MSZIP: every 32 KiB chunk a row of one parse on the card
+        out = cab.write_cab(files, device=device)
+    elif atype == "rar":
+        # RAR5, stored with -m0=copy or -mx0 (tpu7z/cli/main.py:370-373)
+        out = rar.write_rar5(files, compress=opts.method != "copy" and opts.level != 0)
     elif atype in WRITERS:
         out = WRITERS[atype](files)
     elif atype in ONE_INPUT_WRITERS:
@@ -428,6 +504,16 @@ def _add(opts: Options, args, device, update: bool = False) -> int:
     if opts.stdout:
         sys.stdout.buffer.write(out)
         return 0
+    if opts.volume:
+        # -v{size}: archive.001, archive.002, ... each of that size but
+        # the last (tpu7z/cli/main.py:395-405)
+        nvol = 0
+        for off in range(0, len(out), opts.volume):
+            nvol += 1
+            with open(f"{archive}.{nvol:03d}", "wb") as f:
+                f.write(out[off:off + opts.volume])
+        print(f"created {archive}.001..{archive}.{nvol:03d} ({len(out)} bytes in {nvol} volumes)")
+        return 0
     # a temporary file renamed over the archive: a failed write never
     # leaves a partial archive under its name
     tmp = archive + ".tmp"
@@ -438,11 +524,16 @@ def _add(opts: Options, args, device, update: bool = False) -> int:
     return 0
 
 
+def _streamed(opts: Options, path: str, atype: str) -> bool:
+    """Whether `x` streams the file (tpu7z/cli/main.py:547-551): at -mmt1,
+    a type of `streamio.STREAMABLE`, not a `.001` volume."""
+    return opts.threads == 1 and atype in streamio.STREAMABLE and not path.endswith(".001")
+
+
 def _output_name(opts: Options, path: str, atype: str) -> str:
-    """The extracted file's name, as tpu7z's `x` gives it (its -mmt1 path
-    streams the STREAMED types, except from a `.001` volume)."""
+    """The extracted file's name, as tpu7z's `x` gives it."""
     name = os.path.basename(path)
-    if opts.threads == 1 and atype in STREAMED and not path.endswith(".001"):
+    if _streamed(opts, path, atype):
         ext = next((e for e in STRIP_ONE if name.endswith(e)), None)
         return name[:-len(ext)] if ext else name + ".out"
     name = _stream_name(path)
@@ -490,14 +581,17 @@ def _destination(outdir: str, name: str) -> str:
 def _write_files(opts: Options, files: dict, meta: dict):
     """Each file under -o, with its mode (without the setuid, setgid and
     sticky bits) and mtime where the archive holds them, as tpu7z's
-    `cmd_extract` writes them (:593-617). Every name is checked before
-    the first file is written."""
+    `cmd_extract` writes them (:588-614), its progress on standard error
+    with -bb. Every name is checked before the first file is written."""
     dsts = [_destination(opts.outdir, name) for name in files]
     os.makedirs(opts.outdir, exist_ok=True)
+    prog = PercentPrinter(sum(len(v) for v in files.values()), enabled=opts.progress)
     for dst, (name, content) in zip(dsts, files.items()):
+        prog.add(0, name)
         os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
         with open(dst, "wb") as f:
             f.write(content)
+        prog.add(len(content), name)
         mtime, mode = meta.get(name, (None, None))
         if mode is not None:
             try:
@@ -510,20 +604,34 @@ def _write_files(opts: Options, files: dict, meta: dict):
             except OSError:
                 pass
         print(f"extracted {name} ({len(content)} bytes)")
+    prog.finish()
+
+
+def _read_volumes(path: str) -> bytes:
+    """The file at `path`, or where it is the first of a `.001`, `.002`,
+    ... set (three or four digits), the set's volumes joined up to the
+    first gap, as tpu7z's `_read_volumes` (tpu7z/cli/main.py:418-436)."""
+    m = re.match(r"^(.*)\.(\d{3,4})$", path)
+    if not m or int(m.group(2)) != 1:
+        with open(path, "rb") as f:
+            return f.read()
+    base, digits = m.group(1), len(m.group(2))
+    parts = []
+    while os.path.exists(p := f"{base}.{len(parts) + 1:0{digits}d}"):
+        with open(p, "rb") as f:
+            parts.append(f.read())
+    if not parts:
+        raise TpuzError(f"cannot open {path}")
+    return b"".join(parts)
 
 
 def _open(opts: Options, path: str | None, device) -> tuple[str, dict, dict]:
-    """(type, {name: bytes}, metadata) of the archive at `path` (or on
-    standard input with -si), as tpu7z's `_open_archive` reads it: a
-    single stream's one file under `_stream_name`."""
-    if opts.stdin:
-        data = sys.stdin.buffer.read()
-    else:
-        with open(path, "rb") as f:
-            data = f.read()
+    """(type, {name: bytes}, metadata) of the archive at `path` (or of a
+    `.001` set's volumes, or on standard input with -si), as tpu7z's
+    `_open_archive` reads it: a single stream's one file under
+    `_stream_name`."""
+    data = sys.stdin.buffer.read() if opts.stdin else _read_volumes(path)
     atype = opts.type or _sniff_type(path or "", data)
-    if atype in UNPORTED:
-        raise UsageError(f"{path or 'stdin'}: the port does not read {atype}; {ELSEWHERE}")
     if atype == "7z":
         rd = SevenZipReader(data, password=opts.password, device=device)
         return atype, rd.extract_all(), _metadata(rd)
@@ -544,11 +652,42 @@ def _open(opts: Options, path: str | None, device) -> tuple[str, dict, dict]:
     return atype, {_stream_name(path): content}, {}
 
 
+def _stream_out(opts: Options, path: str, atype: str) -> int:
+    """`x` at -mmt1 of a single stream, decoded unit by unit from a memory
+    map into its output file (utils/streamio.py), as tpu7z's
+    (tpu7z/cli/main.py:547-567), but for the .lz4 checks streamio adds
+    and no partial file where it raises."""
+    name = _output_name(opts, path, atype)
+    os.makedirs(opts.outdir, exist_ok=True)
+    prog = PercentPrinter(os.path.getsize(path) * 3, enabled=opts.progress)
+    # a temporary file renamed over the output: a stream found corrupt
+    # part way leaves no partial file under its name (tpu7z's does)
+    dst = os.path.join(opts.outdir, name)
+    try:
+        with open(dst + ".tmp", "wb") as out:
+            total = streamio.stream_extract(path, atype, out, prog)
+    except BaseException:
+        if os.path.exists(dst + ".tmp"):
+            os.unlink(dst + ".tmp")
+        raise
+    os.replace(dst + ".tmp", dst)
+    prog.finish()
+    print(f"extracted {name} ({total} bytes)")
+    return 0
+
+
 def _decode(opts: Options, args, test_only: bool, device) -> int:
     if not args and not opts.stdin:
-        raise UsageError("missing archive")
+        raise UsageError("x: missing archive")
     path = None if opts.stdin else args[0]
+    if path and not test_only and not opts.stdout and opts.threads == 1:
+        with open(path, "rb") as f:
+            head = f.read(64)
+        stype = opts.type or _sniff_type(path, head)
+        if _streamed(opts, path, stype):
+            return _stream_out(opts, path, stype)
     atype, files, meta = _open(opts, path, device)
+    files = {k: v for k, v in files.items() if _name_selected(opts, k)}
     if test_only:
         print(f"type={atype} files={len(files)}")
         if opts.scrc:
@@ -566,8 +705,8 @@ def _decode(opts: Options, args, test_only: bool, device) -> int:
             sys.stdout.buffer.write(content)
         return 0
     if atype not in ARCHIVES:
-        files = {_output_name(opts, path, atype) if path else "stdin":
-                 next(iter(files.values()))}
+        files = {_output_name(opts, path, atype) if path else "stdin": content
+                 for content in files.values()}
     _write_files(opts, files, meta)
     return 0
 
@@ -579,17 +718,9 @@ def _list(opts: Options, args, device) -> int:
     if not args:
         raise UsageError("l: missing archive")
     path = args[0]
-
-    def served(atype):
-        if atype in UNPORTED:
-            raise UsageError(f"l: the port does not read {atype}; {ELSEWHERE}")
-        return atype
-
-    # a name that says an unported type is refused before it is read
-    served(opts.type or _sniff_type(path))
     with open(path, "rb") as f:
         data = f.read()
-    atype = served(opts.type or _sniff_type(path, data))
+    atype = opts.type or _sniff_type(path, data)
     print(f"Listing archive: {path}")
     print(f"Type = {atype}")
     if atype != "7z":
@@ -715,8 +846,13 @@ def main(argv=None, *, device=None) -> int:
     cmd = argv[0]
     try:
         opts, rest = _parse(argv[1:])
+        # codec plugins, before dispatch, so that -t and -m0 can name them
+        # (tpu7z/cli/main.py:771-775)
+        if plugins.plugin_dirs():
+            plugins.load_plugins()
         if cmd not in VERBS:
-            raise UsageError(f"command {cmd!r} is not served by the port; {ELSEWHERE}")
+            print(f"unknown command {cmd!r}", file=sys.stderr)
+            return 1
         return VERBS[cmd](opts, rest, device)
     except (UsageError, TpuzError, OSError) as e:
         print(f"ERROR: {e}", file=sys.stderr)

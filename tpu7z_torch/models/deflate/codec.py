@@ -9,8 +9,8 @@ matcher's greedy walk at hashlog 15 within the block, as tpu7z's
 device of the caller's choice (the CUDA card unless `device` names the
 CPU):
 
-  candidates       every full block a row of one `sort_rows` launch, a
-                   short last block a row of its own (ops/hash_chain.py)
+  candidates       every block a row of one `sort_rows` launch, a short
+                   last block padded to a full row (ops/hash_chain.py)
   lengths, walk    `match_lengths` over the whole input (no position in a
                    row's last 3 bytes has a candidate, so no chain and no
                    panel crosses a row) and one `greedy_walk` from every
@@ -355,10 +355,11 @@ def _codes(dev, table, values):
     return torch.from_numpy(table).to(dev)[values]
 
 
-def _block_tables(lit_hist, dist_hist):
+def _block_tables(lit_hist, dist_hist, streams: bool = False):
     """Per block, on the host: (lit_lens, dist_lens), each (blocks, 286)
     and (blocks, 30), and the header fields of every block: tpu7z's
-    `_compress_block` up to the body."""
+    `_compress_block` up to the body. With `streams` every block is a
+    stream's last (BFINAL 1), else only the last block is."""
     nb = lit_hist.shape[0]
     lit_lens = np.zeros((nb, NLIT), dtype=np.int64)
     dist_lens = np.zeros((nb, NDIST), dtype=np.int64)
@@ -370,15 +371,18 @@ def _block_tables(lit_hist, dist_hist):
         else:
             dist_lens[b] = _lens_from_hist(np.maximum(dist_hist[b], 0), NDIST, 15)
         w = _Fields()
-        w.write(1 if b == nb - 1 else 0, 1)
+        w.write(1 if streams or b == nb - 1 else 0, 1)
         w.write(2, 2)
         _write_dynamic_header(w, lit_lens[b], dist_lens[b])
         headers.append(w)
     return lit_lens, dist_lens, headers
 
 
-def _encode(s, block_size: int) -> bytes:
-    """The stream of a non-empty input `s` (uint8 on its device)."""
+def _encode(s, block_size: int, streams: bool = False):
+    """The stream of a non-empty input `s` (uint8 on its device); with
+    `streams`, every block its own stream (a list of bytes): its header
+    with BFINAL 1, and after its EOB a field of zero bits to its byte
+    boundary."""
     dev = s.device
     n = s.numel()
     nb = -(-n // block_size)
@@ -404,23 +408,25 @@ def _encode(s, block_size: int) -> bytes:
         hist = torch.cat([lit_hist, dist_hist], 1).cpu().numpy()
         lit_hist, dist_hist = hist[:, :NLIT].copy(), hist[:, NLIT:]
         lit_hist[:, 256] = 1
-        lit_lens, dist_lens, headers = _block_tables(lit_hist, dist_hist)
+        lit_lens, dist_lens, headers = _block_tables(lit_hist, dist_hist, streams)
     with trace.stage("deflate.pack", dev):
         lit_codes = np.stack([_rev_codes(_canonical_codes(x), x) for x in lit_lens])
         dist_codes = np.stack([_rev_codes(_canonical_codes(x), x) for x in dist_lens])
         # each block's fields: its header's, one a token (a literal or a
-        # match, in stream order), its EOB; a field's index is its rank
-        # among its kind plus its block's shift
+        # match, in stream order), its EOB (and with `streams` its pad); a
+        # field's index is its rank among its kind plus its block's shift
         tokens = lit_hist[:, :256].sum(1) + lit_hist[:, 257:].sum(1)
         heads = np.array([len(h.values) for h in headers], dtype=np.int64)
-        seg = np.cumsum(heads + tokens + 1)
-        seg_start = seg - (heads + tokens + 1)
+        tail = 2 if streams else 1
+        seg = np.cumsum(heads + tokens + tail)
+        seg_start = seg - (heads + tokens + tail)
+        eob = seg_start + heads + tokens
         hvals = np.concatenate([h.values for h in headers]).astype(np.int64)
         hbits = np.concatenate([h.nbits for h in headers]).astype(np.int64)
         hidx = np.arange(hbits.size) + np.repeat(seg_start - (np.cumsum(heads) - heads), heads)
         values = torch.zeros(int(seg[-1]), dtype=torch.int64, device=dev)
         nbits = torch.zeros_like(values)
-        for idx, v, b in ((hidx, hvals, hbits), (seg - 1, lit_codes[:, 256], lit_lens[:, 256])):
+        for idx, v, b in ((hidx, hvals, hbits), (eob, lit_codes[:, 256], lit_lens[:, 256])):
             i = torch.from_numpy(idx).to(dev)
             values[i] = torch.from_numpy(v).to(dev)
             nbits[i] = torch.from_numpy(b).to(dev)
@@ -455,7 +461,17 @@ def _encode(s, block_size: int) -> bytes:
         kbits[is_match] = mbits
         values[kidx] = kval
         nbits[kidx] = kbits
-        return pack_bits_lsb_tensor(values, nbits).cpu().numpy().tobytes()
+        if not streams:
+            return pack_bits_lsb_tensor(values, nbits).cpu().numpy().tobytes()
+        # each stream's pad field closes it at a byte boundary (pad fields
+        # are still 0 here); one host read gives every stream's bit count
+        blk = torch.repeat_interleave(torch.arange(nb, device=dev),
+                                      torch.from_numpy(seg - seg_start).to(dev))
+        bits = torch.zeros(nb, dtype=torch.int64, device=dev).index_add_(0, blk, nbits)
+        nbits[torch.from_numpy(seg - 1).to(dev)] = -bits & 7
+        ends = ((bits + 7) >> 3).cumsum(0).tolist()
+        out = pack_bits_lsb_tensor(values, nbits).cpu().numpy().tobytes()
+        return [out[a:b] for a, b in zip([0] + ends[:-1], ends)]
 
 
 def compress(data: bytes, level: int = 6, block_size: int = BLOCK, device=None) -> bytes:
@@ -466,14 +482,45 @@ def compress(data: bytes, level: int = 6, block_size: int = BLOCK, device=None) 
     `deflate.header` and `deflate.pack` when tracing is on."""
     dev = resolve_device(device)
     if len(data) == 0:
-        w = BitWriterLSB()
-        w.write(1, 1)
-        w.write(1, 2)  # fixed block, just EOB
-        codes = _canonical_codes(_FIXED_LIT_LEN)
-        w.write(_rev_bits(int(codes[256]), 7), 7)
-        return w.close()
+        return _empty_stream()
     s = torch.from_numpy(np.frombuffer(bytes(data), dtype=np.uint8).copy()).to(dev)
     return _encode(s, block_size)
+
+
+def _empty_stream() -> bytes:
+    """tpu7z's stream of no bytes: one fixed block holding its EOB."""
+    w = BitWriterLSB()
+    w.write(1, 1)
+    w.write(1, 2)  # fixed block, just EOB
+    codes = _canonical_codes(_FIXED_LIT_LEN)
+    w.write(_rev_bits(int(codes[256]), 7), 7)
+    return w.close()
+
+
+def compress_streams(chunks, device=None) -> list:
+    """One raw DEFLATE stream a chunk, each `compress(chunk)`'s bytes (one
+    dynamic block, BFINAL 1, closed at a byte boundary), as a cabinet's
+    MSZIP blocks hold them. Every chunk but the last must be as long as
+    the first and the last no longer: the chunks are then the blocks of
+    their concatenation, each a row of one `_find_matches` parse (one
+    `sort_rows` launch on `device`, the CUDA card unless it names the
+    CPU), and one `pack_bits_lsb_tensor` packs every stream. An empty
+    chunk (only the last can be, or the only one) gets the empty stream.
+    Spans `deflate.parse`, `deflate.header`, `deflate.pack`."""
+    dev = resolve_device(device)
+    chunks = [bytes(c) for c in chunks]
+    if not chunks:
+        return []
+    block = len(chunks[0])
+    if any(len(c) != block for c in chunks[:-1]) or len(chunks[-1]) > block:
+        raise ValueError("compress_streams: every chunk but the last must be as long as the "
+                         "first, and the last no longer")
+    body = [c for c in chunks if c]
+    out = []
+    if body:
+        blob = np.frombuffer(b"".join(body), dtype=np.uint8).copy()
+        out = _encode(torch.from_numpy(blob).to(dev), block, streams=True)
+    return out + [_empty_stream()] * (len(chunks) - len(body))
 
 
 # ---------------------------------------------------------------------------

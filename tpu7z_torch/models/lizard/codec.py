@@ -25,7 +25,7 @@ the off16/off24/flags/literals streams Huffman-coded where that makes it
 smaller. The parses run as tensor code on the device of the caller's
 choice (the CUDA card unless `device` names the CPU), every 128 KiB
 chunk of the input a row of one candidate sort (`sort_rows` on the
-card), a short last chunk a row of its own:
+card), a short last chunk padded to a full row:
 
   LZ4 code words   the greedy parse at hashlog 16 with lizard's limits:
                    offsets 8-0xFFFF, a match starting at least 32 bytes

@@ -19,8 +19,8 @@ with LZ5's limits (offset <= 0xFFFF, a match starting at most
 MF_LIMIT + 1 bytes before the block's end and ending LAST_LITERALS bytes
 before it, at least MIN_MATCH + 1 long), as tensor code on the device of
 the caller's choice (the CUDA card unless `device` names the CPU):
-`compress_frame` parses every full block as a row of one candidate sort
-(`sort_rows` on the card), a short last block as another
+`compress_frame` parses every block as a row of one candidate sort
+(`sort_rows` on the card), a short last block padded to a full row
 (ops/hash_chain.py `greedy_blocks`). The token emission, the frame and
 the decoders run on the host.
 """

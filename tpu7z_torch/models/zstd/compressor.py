@@ -122,9 +122,9 @@ def parse_blocks(s, block_size: int, hashlog: int, depth: int = 2, lazy: int = 0
                  min_block: int = 16):
     """`_parse_segment(block, 0, hashlog, max_offset >= block_size, depth,
     lazy)` of every `block_size` block of the uint8 tensor `s` at once,
-    no match reaching outside its block: the full blocks are the rows of
-    one candidate sort, a short last block (at least `min_block` bytes)
-    a row of its own, and blocks shorter than that get no matches. The
+    no match reaching outside its block: the blocks are the rows of one
+    candidate sort, a short last block (at least `min_block` bytes) padded
+    to a full row, and blocks shorter than that get no matches. The
     scoring runs over the whole input with each block's limits, and one
     walk starts at every block. Returns (mpos, mlen, moff), int64 tensors,
     positions in `s`."""

@@ -243,23 +243,32 @@ def block_candidates(s, block_size: int, hashlog: int, depth: int = 1,
     """[cand_1, ..., cand_depth], each int64 (n,): `find_candidates_multi`
     of every `block_size` block of the uint8 tensor `s` on its own, as
     positions in `s` (-1: none, and so in each block's last 3 bytes).
-    Full blocks are the rows of one sort (one `sort_rows` launch on the
-    card), a short last block of at least `min_block` bytes a row of its
-    own; shorter blocks get none."""
+    Every block is a row of one sort (one `sort_rows` launch on the card):
+    a short last block of at least `min_block` bytes is zero-padded to a
+    full row, and the padding, which follows every real position of its
+    row, is no earlier occurrence of any of them, so their candidates are
+    those of the block alone; shorter blocks get none."""
     n = s.numel()
     dev = s.device
     cands = [torch.full((n,), -1, dtype=torch.int64, device=dev) for _ in range(depth)]
     full = n // block_size
-    if full and block_size >= min_block:
-        rows = s[:full * block_size].view(full, block_size)
-        base = torch.arange(full, dtype=torch.int64, device=dev)[:, None] * block_size
-        for c, local in zip(cands, find_candidates_multi(rows, hashlog, depth)):
-            c[:full * block_size].view(full, block_size)[:, :block_size - 3] = torch.where(
-                local >= 0, local + base, -1)
     last = full * block_size
-    if n - last >= max(min_block, 4):
-        for c, local in zip(cands, find_candidates_multi(s[last:], hashlog, depth)):
-            c[last:n - 3] = torch.where(local >= 0, local + last, -1)
+    ragged = n - last >= max(min_block, 4)
+    nrows = full + ragged
+    if not nrows or block_size < min_block:
+        return cands
+    if ragged:
+        rows = torch.zeros(nrows * block_size, dtype=s.dtype, device=dev)
+        rows[:n] = s
+        rows = rows.view(nrows, block_size)
+    else:
+        rows = s[:last].view(full, block_size)
+    base = torch.arange(nrows, dtype=torch.int64, device=dev)[:, None] * block_size
+    for c, local in zip(cands, find_candidates_multi(rows, hashlog, depth)):
+        local = torch.where(local >= 0, local + base, -1)
+        c[:last].view(full, block_size)[:, :block_size - 3] = local[:full]
+        if ragged:
+            c[last:n - 3] = local[full, :n - last - 3]
     return cands
 
 

@@ -236,6 +236,35 @@ def xxh32_native(data, seed: int = 0) -> int:
     return _function("tz_xxh32", ctypes.c_uint32)(buf.ctypes.data, buf.size, seed & _M32)
 
 
+class XXH32Stream:
+    """XXH32 of bytes given in pieces (`update`), by the same host library
+    (csrc/xxh32.cpp's streaming form): `digest()` equals `xxh32_native`
+    of the pieces joined."""
+
+    def __init__(self, seed: int = 0):
+        lib = _build.load("xxh32")
+        if "stream" not in _native:
+            lib.tz_xxh32_state_size.argtypes = []
+            lib.tz_xxh32_state_size.restype = ctypes.c_size_t
+            for name, args, res in (("tz_xxh32_reset", [ctypes.c_void_p, ctypes.c_uint32], None),
+                                    ("tz_xxh32_update",
+                                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t], None),
+                                    ("tz_xxh32_digest", [ctypes.c_void_p], ctypes.c_uint32)):
+                getattr(lib, name).argtypes = args
+                getattr(lib, name).restype = res
+            _native["stream"] = lib
+        self._lib = lib
+        self._state = ctypes.create_string_buffer(lib.tz_xxh32_state_size())
+        lib.tz_xxh32_reset(self._state, seed & _M32)
+
+    def update(self, data) -> None:
+        buf = _buffer(data)
+        self._lib.tz_xxh32_update(self._state, buf.ctypes.data, buf.size)
+
+    def digest(self) -> int:
+        return self._lib.tz_xxh32_digest(self._state)
+
+
 def xxh64_native(data, seed: int = 0) -> int:
     """XXH64 of `data` by the same library (csrc/xxh64.h); equal to
     `xxh64`."""

@@ -14,5 +14,9 @@ class UnsupportedError(TpuzError):
     """A valid feature the port does not decode."""
 
 
+class DstTooSmallError(TpuzError):
+    """An output buffer too small for what it must hold."""
+
+
 class ParamError(TpuzError):
     """A parameter out of its range."""
