@@ -64,7 +64,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      against the Python one (lengths 0-33, the first 2 MiB), both timed,
      and the parts of `compress_frame_device(corpus)` (host clock); one
      `encode_blocks` over the corpus traced by `trace.profile`, each stage
-     annotated: the device's busy time and idle share over the window;
+     named by the encoder's `lz4.*` spans: the device's busy time and idle
+     share over the window;
   7. the benchmark: `python3 bench_torch.py` in a process of its own (at
      most 600 s); its result line is printed, and must name the metric,
      read device_ratio 1.818 with every block verified, and name the card
@@ -2746,7 +2747,8 @@ def main() -> int:
     log(f"traced encode_blocks (32 MiB, W=0; host clock with the profiler {t_traced:.3f} s): "
         f"annotated window {share['window_ms']:.3f} ms, device busy {share['busy_ms']:.3f} ms "
         f"({share['kernels']} kernels), idle share {share['idle_share']:.4f}; stages on the "
-        f"device (ms): { {k: round(v, 3) for k, v in share['device_spans_ms'].items()} }; "
+        f"device (ms): "
+        f"{ {k: round(v, 3) for k, v in share['device_spans_ms'].items() if k.startswith('lz4.')} }; "
         f"longest idle gaps (start, ms) {share['idle_gaps_ms']}; "
         f"{share['segments_allocated']} device segments allocated in it")
     del out_t, used_t, want_out, want_used

@@ -178,4 +178,8 @@ def test_spans_are_traced(corpus):
     finally:
         trace.detach()
         trace.clear()
-    assert names == ["lz.sort", "lz.match_lengths", "lz.walk"]
+    assert [n for n in names if n.startswith("lz.")] == ["lz.sort", "lz.match_lengths", "lz.walk"]
+    # inside them: the sort's launch and the matcher's host reads
+    assert names[0] == "sort.rows" and names[1] == "lz.sort"
+    assert set(names) - {"lz.sort", "lz.match_lengths", "lz.walk"} == {
+        "sort.rows", "read.lz_chain_ends", "read.lz_panel_rows", "read.lz_panel_pass"}

@@ -390,7 +390,8 @@ def _encode(s, block_size: int, streams: bool = False):
         take, mlen, off = _find_matches(s, block_size)
     with trace.stage("deflate.header", dev):
         # the literal mask: every position no taken match covers
-        tpos = torch.nonzero(take).flatten()
+        with trace.span("read.deflate_takes"):
+            tpos = torch.nonzero(take).flatten()
         tlen, toff = mlen[tpos], off[tpos]
         edge = torch.zeros(n + 1, dtype=torch.int64, device=dev)
         edge.index_add_(0, tpos, torch.ones_like(tpos))
@@ -398,14 +399,19 @@ def _encode(s, block_size: int, streams: bool = False):
         is_lit = torch.cumsum(edge[:n], 0) == 0
         lc = torch.searchsorted(torch.from_numpy(LENGTH_BASE).to(dev), tlen, right=True) - 1
         dc = torch.searchsorted(torch.from_numpy(DIST_BASE).to(dev), toff, right=True) - 1
-        lpos = torch.nonzero(is_lit).flatten()
+        with trace.span("read.deflate_literals"):
+            lpos = torch.nonzero(is_lit).flatten()
         lsym = s[lpos].to(torch.int64)
         lit_idx = torch.cat([(lpos // block_size) * NLIT + lsym,
                              (tpos // block_size) * NLIT + 257 + lc])
-        lit_hist = torch.bincount(lit_idx, minlength=nb * NLIT).view(nb, NLIT)
-        dist_hist = torch.bincount((tpos // block_size) * NDIST + dc,
-                                   minlength=nb * NDIST).view(nb, NDIST)
-        hist = torch.cat([lit_hist, dist_hist], 1).cpu().numpy()
+        # on the card a bincount reads its input's least and largest value
+        with trace.span("read.deflate_bincount"):
+            lit_hist = torch.bincount(lit_idx, minlength=nb * NLIT).view(nb, NLIT)
+        with trace.span("read.deflate_bincount"):
+            dist_hist = torch.bincount((tpos // block_size) * NDIST + dc,
+                                       minlength=nb * NDIST).view(nb, NDIST)
+        with trace.span("read.deflate_hist"):
+            hist = torch.cat([lit_hist, dist_hist], 1).cpu().numpy()
         lit_hist, dist_hist = hist[:, :NLIT].copy(), hist[:, NLIT:]
         lit_hist[:, 256] = 1
         lit_lens, dist_lens, headers = _block_tables(lit_hist, dist_hist, streams)
@@ -432,7 +438,8 @@ def _encode(s, block_size: int, streams: bool = False):
             nbits[i] = torch.from_numpy(b).to(dev)
         tok = is_lit.clone()
         tok[tpos] = True
-        kpos = torch.nonzero(tok).flatten()
+        with trace.span("read.deflate_tokens"):
+            kpos = torch.nonzero(tok).flatten()
         kblk = kpos // block_size
         shift = torch.from_numpy(seg_start + heads - (np.cumsum(tokens) - tokens)).to(dev)
         kidx = torch.arange(kpos.numel(), dtype=torch.int64, device=dev) + shift[kblk]
@@ -457,21 +464,35 @@ def _encode(s, block_size: int, streams: bool = False):
         sym = s[kpos].to(torch.int64)
         kval = lcodes[kblk, sym]
         kbits = llens[kblk, sym]
-        kval[is_match] = mval
-        kbits[is_match] = mbits
+        # a boolean mask's writes read its count
+        with trace.span("read.deflate_match_mask"):
+            kval[is_match] = mval
+        with trace.span("read.deflate_match_mask"):
+            kbits[is_match] = mbits
         values[kidx] = kval
         nbits[kidx] = kbits
         if not streams:
-            return pack_bits_lsb_tensor(values, nbits).cpu().numpy().tobytes()
+            return _to_host(pack_bits_lsb_tensor(values, nbits))
         # each stream's pad field closes it at a byte boundary (pad fields
         # are still 0 here); one host read gives every stream's bit count
-        blk = torch.repeat_interleave(torch.arange(nb, device=dev),
-                                      torch.from_numpy(seg - seg_start).to(dev))
+        with trace.span("read.deflate_stream_fields"):
+            blk = torch.repeat_interleave(torch.arange(nb, device=dev),
+                                          torch.from_numpy(seg - seg_start).to(dev))
         bits = torch.zeros(nb, dtype=torch.int64, device=dev).index_add_(0, blk, nbits)
         nbits[torch.from_numpy(seg - 1).to(dev)] = -bits & 7
-        ends = ((bits + 7) >> 3).cumsum(0).tolist()
-        out = pack_bits_lsb_tensor(values, nbits).cpu().numpy().tobytes()
+        with trace.span("read.deflate_stream_ends"):
+            ends = ((bits + 7) >> 3).cumsum(0).tolist()
+        out = _to_host(pack_bits_lsb_tensor(values, nbits))
         return [out[a:b] for a, b in zip([0] + ends[:-1], ends)]
+
+
+def _to_host(packed) -> bytes:
+    """The packed stream's bytes: its copy to the host (a span `entry.d2h`)
+    and `tobytes` (`entry.tobytes`)."""
+    with trace.span("entry.d2h"):
+        packed = packed.cpu()
+    with trace.span("entry.tobytes"):
+        return packed.numpy().tobytes()
 
 
 def compress(data: bytes, level: int = 6, block_size: int = BLOCK, device=None) -> bytes:
@@ -479,12 +500,17 @@ def compress(data: bytes, level: int = 6, block_size: int = BLOCK, device=None) 
     the body's codes and the bit packing on `device` (the CUDA card unless
     it names the CPU), each block's code lengths and header on the host.
     `level` is ignored, as tpu7z ignores it. Spans `deflate.parse`,
-    `deflate.header` and `deflate.pack` when tracing is on."""
-    dev = resolve_device(device)
-    if len(data) == 0:
-        return _empty_stream()
-    s = torch.from_numpy(np.frombuffer(bytes(data), dtype=np.uint8).copy()).to(dev)
-    return _encode(s, block_size)
+    `deflate.header` and `deflate.pack` when tracing is on, under a root
+    span `entry.deflate`; the input's copy to the card is `entry.h2d`, the
+    stream's copy back `entry.d2h` and `entry.tobytes`, and each host read
+    before it a `read.*` span."""
+    with trace.span("entry.deflate", size=len(data)):
+        dev = resolve_device(device)
+        if len(data) == 0:
+            return _empty_stream()
+        with trace.span("entry.h2d"):
+            s = torch.from_numpy(np.frombuffer(bytes(data), dtype=np.uint8).copy()).to(dev)
+        return _encode(s, block_size)
 
 
 def _empty_stream() -> bytes:
@@ -529,12 +555,15 @@ def compress_streams(chunks, device=None) -> list:
 
 def gzip_compress(data: bytes, level: int = 6, device=None) -> bytes:
     """tpu7z's .gz: a fixed header (no name, mtime 0, OS 255), the DEFLATE
-    stream of `compress` on `device`, the CRC32 and the length."""
-    hdr = bytes([0x1F, 0x8B, 8, 0, 0, 0, 0, 0, 0, 255])
-    body = compress(data, level, device=device)
-    tail = (crc32_native(data).to_bytes(4, "little")
-            + (len(data) & 0xFFFFFFFF).to_bytes(4, "little"))
-    return hdr + body + tail
+    stream of `compress` on `device`, the CRC32 and the length. A root
+    span `entry.gzip` over `compress`'s and `gzip.crc32`."""
+    with trace.span("entry.gzip", size=len(data)):
+        hdr = bytes([0x1F, 0x8B, 8, 0, 0, 0, 0, 0, 0, 255])
+        body = compress(data, level, device=device)
+        with trace.span("gzip.crc32"):
+            crc = crc32_native(data)
+        tail = crc.to_bytes(4, "little") + (len(data) & 0xFFFFFFFF).to_bytes(4, "little")
+        return hdr + body + tail
 
 
 def gzip_decompress(src: bytes) -> bytes:

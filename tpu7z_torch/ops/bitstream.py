@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.errors import CorruptError
 
 
@@ -203,13 +204,14 @@ def pack_bits_lsb_tensor(values, nbits):
     cumsum; a field shifted by its offset's low 3 bits fits a window below
     2**63; fields share no bit, so a scatter-add of the windows' bytes
     equals their OR. One host read: the total length and the widest
-    field."""
+    field (a span `read.bitstream_total`)."""
     nbits = nbits.to(torch.int64)
     if nbits.numel() == 0:
         return torch.zeros(0, dtype=torch.uint8, device=values.device)
     ends = torch.cumsum(nbits, 0)
     starts = ends - nbits
-    total, widest = torch.stack([ends[-1], nbits.max()]).tolist()
+    with trace.span("read.bitstream_total"):
+        total, widest = torch.stack([ends[-1], nbits.max()]).tolist()
     if widest > 56:
         raise ValueError("pack_bits_lsb_tensor supports at most 56 bits per field")
     window = (values & ((1 << nbits) - 1)) << (starts & 7)

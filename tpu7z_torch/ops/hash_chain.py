@@ -136,11 +136,14 @@ def _panel_lengths(s, a, b, bound):
     at most `bound` (each a[i] + bound[i] and b[i] + bound[i] within s):
     byte panels compared pass by pass, a panel twice as wide as the last
     (at most PANEL_MAX, and PANEL_BUDGET byte pairs a pass), the rows
-    still equal over their whole panel kept for the next."""
+    still equal over their whole panel kept for the next. Host reads:
+    the rows to compare (`read.lz_panel_rows`), then those left after
+    each pass (`read.lz_panel_pass`)."""
     dev = s.device
     last = s.numel() - 1
     run = torch.zeros_like(bound)
-    active = torch.nonzero(bound > 0).flatten()
+    with trace.span("read.lz_panel_rows"):
+        active = torch.nonzero(bound > 0).flatten()
     width = PANEL
     while active.numel():
         width = max(PANEL, min(width, PANEL_BUDGET // active.numel()))
@@ -154,7 +157,8 @@ def _panel_lengths(s, a, b, bound):
         # the first byte that differs, or the end of the span
         lead = torch.cumprod(eq.to(torch.int32), 1).sum(1).to(torch.int64)
         run[active] = done + lead
-        active = active[(lead == span) & (done + span < bound[active])]
+        with trace.span("read.lz_panel_pass"):
+            active = active[(lead == span) & (done + span < bound[active])]
         width = min(2 * width, PANEL_MAX)
     return run
 
@@ -174,7 +178,8 @@ def match_lengths(s, pos, cand, limit):
     common prefix plus one: such links form chains, and only each chain's
     last position compares panels (`_panel_lengths`), up to the most any
     position of its chain can use. A span `lz.match_lengths` when tracing
-    is on."""
+    is on, holding a host read of the chain ends (`read.lz_chain_ends`)
+    and those of `_panel_lengths`."""
     dev = s.device
     n = s.numel()
     with trace.stage("lz.match_lengths", dev):
@@ -199,7 +204,8 @@ def match_lengths(s, pos, cand, limit):
         dist = end - pos
         need = torch.zeros(n + 1, dtype=torch.int64, device=dev)
         need.scatter_reduce_(0, end, cap - dist, "amax", include_self=True)
-        ends = pos[~link]
+        with trace.span("read.lz_chain_ends"):
+            ends = pos[~link]
         ec = plane[ends]
         room = (n - (ends + VERIFIED)).clamp(min=0)
         bound = torch.minimum(need[ends], room)
@@ -220,10 +226,13 @@ def greedy_walk(next_pos, n: int, start=0):
     reached so far and squares the successor map, so after k steps the
     first 2**k positions of each walk are reached; ceil(log2(span)) steps
     reach all of them, span being the widest gap from a start to the next
-    or to n + 1 (one host read of the starts). A span `lz.walk` when
-    tracing is on."""
+    or to n + 1 (one host read of a tensor of starts, a span
+    `read.lz_bounds`). A span `lz.walk` when tracing is on."""
     dev = next_pos.device
-    bounds = torch.as_tensor(start, dtype=torch.int64).flatten().cpu()
+    bounds = torch.as_tensor(start, dtype=torch.int64).flatten()
+    if isinstance(start, torch.Tensor):
+        with trace.span("read.lz_bounds"):
+            bounds = bounds.cpu()
     span = int(torch.diff(bounds, append=torch.tensor([n + 1])).max()) if bounds.numel() else 1
     with trace.stage("lz.walk", dev):
         jump = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
@@ -284,7 +293,8 @@ def greedy_blocks(s, block_size: int, hashlog: int, *, min_offset: int = 1,
     at every block's first position. The candidates are
     `block_candidates`' (a span `lz.sort`). A candidate lies in its
     position's block and no position in a block's last 3 bytes has one,
-    so `match_lengths` runs over the whole input."""
+    so `match_lengths` runs over the whole input. One host read of its
+    own, the positions with a candidate (`read.lz_valid`)."""
     n = s.numel()
     dev = s.device
     with trace.stage("lz.sort", dev):
@@ -293,7 +303,8 @@ def greedy_blocks(s, block_size: int, hashlog: int, *, min_offset: int = 1,
     off = pos - cand
     block_end = torch.clamp((pos // block_size + 1) * block_size, max=n)
     valid = (cand >= 0) & (off >= min_offset) & (off <= max_offset) & (pos <= block_end - tail)
-    vidx = torch.nonzero(valid).flatten()
+    with trace.span("read.lz_valid"):
+        vidx = torch.nonzero(valid).flatten()
     limit = block_end[vidx] - end - vidx
     if max_len is not None:
         limit = torch.clamp(limit, max=max_len)

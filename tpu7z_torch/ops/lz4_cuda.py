@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from . import _build
 from . import lz4_plane as P
 from . import sort_cuda
@@ -135,9 +136,12 @@ def _on_card(device):
 
 
 def _check_ns(ns, B, device):
-    """Valid lengths only: the kernels size their writes from them."""
+    """Valid lengths only: the kernels size their writes from them. One
+    host read (a span `read.lz4_check_ns`)."""
     _check(ns, "ns", torch.int32, (B,), device)
-    if bool(((ns < 0) | (ns > BLOCK)).any()):
+    with trace.span("read.lz4_check_ns"):
+        bad = bool(((ns < 0) | (ns > BLOCK)).any())
+    if bad:
         raise ValueError(f"ns: every length must lie in [0, {BLOCK}]")
 
 
@@ -156,67 +160,97 @@ def _sort_keys(key):
     return sort_cuda.sort_rows(key, begin_bit=16)[0]
 
 
+def launch_bytes(name, B, W: int = P.W_DEFAULT):
+    """Bytes the launch of encoder kernel `name` over B blocks reads and
+    writes by its contract: each plane it reads whole once, each plane it
+    writes once. Planes a kernel reads only where the data asks are left
+    out: lz4_match's blocks at W = 0, lz4_geometry's moff, lz4_emit's
+    blocks, moff and every geometry plane but glen and kept. The spans
+    `lz4.match`, `lz4.parse`, `lz4.geometry` and `lz4.emit` carry it as
+    `bytes`, on the CPU path too."""
+    N = BLOCK
+    per_block = {
+        "lz4_match": 4 + 3 * 4 * N + (N if W else 0) + 2 * 4 * N,
+        "lz4_parse": 4 * N + N,
+        "lz4_geometry": 4 * N + N + 4 + 4 * len(P.GEO_NAMES) * N + 2 * 4,
+        "lz4_emit": 4 + 2 * 4 * N + OUT_CAP,
+    }[name]
+    return B * per_block
+
+
+def _rows(t):
+    """The row count of a 2-D tensor, else 0: the spans' bytes are counted
+    before the wrappers' checks, which must raise as they do."""
+    return t.shape[0] if isinstance(t, torch.Tensor) and t.dim() == 2 else 0
+
+
 def candidates(blocks, ns):
     """Sorted-neighbour candidate planes (so8, so4a, so4b) on any device;
-    on the card each tier's sort is one launch of the row-sort kernel."""
-    _check_batch(blocks, ns)
-    return P.candidates(P.phase0_words(blocks), ns, sort=_sort_keys)
+    on the card each tier's sort is one launch of the row-sort kernel.
+    A span `lz4.candidates`."""
+    with trace.span("lz4.candidates"):
+        _check_batch(blocks, ns)
+        return P.candidates(P.phase0_words(blocks), ns, sort=_sort_keys)
 
 
 def match_lengths(blocks, ns, so8, so4a, so4b, W: int = P.W_DEFAULT):
     """(mlen, moff) (B, BLOCK) int32 from the candidate planes and the
-    tier-A window of width W."""
-    B, dev = _check_batch(blocks, ns)
-    for name, t in (("so8", so8), ("so4a", so4a), ("so4b", so4b)):
-        _check(t, name, torch.int32, (B, BLOCK), dev)
-    if not 0 <= W < BLOCK:
-        raise ValueError(f"W={W} out of range")
-    if not _on_card(dev):
-        return P.match_lengths_ref(blocks, ns, so8, so4a, so4b, W)
-    _check_aligned(("blocks", blocks), ("so8", so8), ("so4a", so4a),
-                   ("so4b", so4b))
-    mlen = torch.empty((B, BLOCK), dtype=torch.int32, device=dev)
-    moff = torch.empty((B, BLOCK), dtype=torch.int32, device=dev)
-    _launch("lz4_match", blocks, ns, so8, so4a, so4b, mlen, moff, B, W)
-    return mlen, moff
+    tier-A window of width W. A span `lz4.match`."""
+    with trace.span("lz4.match", bytes=launch_bytes("lz4_match", _rows(blocks), W)):
+        B, dev = _check_batch(blocks, ns)
+        for name, t in (("so8", so8), ("so4a", so4a), ("so4b", so4b)):
+            _check(t, name, torch.int32, (B, BLOCK), dev)
+        if not 0 <= W < BLOCK:
+            raise ValueError(f"W={W} out of range")
+        if not _on_card(dev):
+            return P.match_lengths_ref(blocks, ns, so8, so4a, so4b, W)
+        _check_aligned(("blocks", blocks), ("so8", so8), ("so4a", so4a),
+                       ("so4b", so4b))
+        mlen = torch.empty((B, BLOCK), dtype=torch.int32, device=dev)
+        moff = torch.empty((B, BLOCK), dtype=torch.int32, device=dev)
+        _launch("lz4_match", blocks, ns, so8, so4a, so4b, mlen, moff, B, W)
+        return mlen, moff
 
 
 def parse(mlen):
-    """is_start (B, BLOCK) bool from any int32 mlen plane."""
-    if not isinstance(mlen, torch.Tensor) or mlen.dim() != 2:
-        raise ValueError("mlen: expected a (B, BLOCK) int32 tensor")
-    B, dev = mlen.shape[0], mlen.device
-    _check(mlen, "mlen", torch.int32, (B, BLOCK), dev)
-    if not _on_card(dev):
-        return P.phase3_parse(mlen)
-    _check_aligned(("mlen", mlen))
-    st = torch.empty((B, BLOCK), dtype=torch.uint8, device=dev)
-    _launch("lz4_parse", mlen, st, B)
-    return st.view(torch.bool)
+    """is_start (B, BLOCK) bool from any int32 mlen plane. A span
+    `lz4.parse`."""
+    with trace.span("lz4.parse", bytes=launch_bytes("lz4_parse", _rows(mlen))):
+        if not isinstance(mlen, torch.Tensor) or mlen.dim() != 2:
+            raise ValueError("mlen: expected a (B, BLOCK) int32 tensor")
+        B, dev = mlen.shape[0], mlen.device
+        _check(mlen, "mlen", torch.int32, (B, BLOCK), dev)
+        if not _on_card(dev):
+            return P.phase3_parse(mlen)
+        _check_aligned(("mlen", mlen))
+        st = torch.empty((B, BLOCK), dtype=torch.uint8, device=dev)
+        _launch("lz4_parse", mlen, st, B)
+        return st.view(torch.bool)
 
 
 def geometry(mlen, moff, is_start, ns):
     """Geometry dict: (B, BLOCK) int32 planes named by GEO_NAMES, and
-    `core_used`, `used` (B,) int32."""
-    B, dev = mlen.shape[0], mlen.device
-    _check(mlen, "mlen", torch.int32, (B, BLOCK), dev)
-    _check(moff, "moff", torch.int32, (B, BLOCK), dev)
-    _check(is_start, "is_start", torch.bool, (B, BLOCK), dev)
-    _check_ns(ns, B, dev)
-    if not _on_card(dev):
-        return P.phase4_geometry(mlen, moff, is_start, ns)
-    _check_aligned(("mlen", mlen), ("moff", moff), ("is_start", is_start))
-    planes = torch.empty((B, len(P.GEO_NAMES), BLOCK), dtype=torch.int32,
-                         device=dev)
-    core_used = torch.empty((B,), dtype=torch.int32, device=dev)
-    used = torch.empty((B,), dtype=torch.int32, device=dev)
-    _launch("lz4_geometry", mlen, moff, is_start.view(torch.uint8), ns,
-            planes, core_used, used, B)
-    geo = {k: planes[:, i] for i, k in enumerate(P.GEO_NAMES)}
-    geo["planes"] = planes
-    geo["core_used"] = core_used
-    geo["used"] = used
-    return geo
+    `core_used`, `used` (B,) int32. A span `lz4.geometry`."""
+    with trace.span("lz4.geometry", bytes=launch_bytes("lz4_geometry", _rows(mlen))):
+        B, dev = mlen.shape[0], mlen.device
+        _check(mlen, "mlen", torch.int32, (B, BLOCK), dev)
+        _check(moff, "moff", torch.int32, (B, BLOCK), dev)
+        _check(is_start, "is_start", torch.bool, (B, BLOCK), dev)
+        _check_ns(ns, B, dev)
+        if not _on_card(dev):
+            return P.phase4_geometry(mlen, moff, is_start, ns)
+        _check_aligned(("mlen", mlen), ("moff", moff), ("is_start", is_start))
+        planes = torch.empty((B, len(P.GEO_NAMES), BLOCK), dtype=torch.int32,
+                             device=dev)
+        core_used = torch.empty((B,), dtype=torch.int32, device=dev)
+        used = torch.empty((B,), dtype=torch.int32, device=dev)
+        _launch("lz4_geometry", mlen, moff, is_start.view(torch.uint8), ns,
+                planes, core_used, used, B)
+        geo = {k: planes[:, i] for i, k in enumerate(P.GEO_NAMES)}
+        geo["planes"] = planes
+        geo["core_used"] = core_used
+        geo["used"] = used
+        return geo
 
 
 def _planes(geo, B, dev):
@@ -232,18 +266,20 @@ def _planes(geo, B, dev):
 def emit(blocks, moff, geo):
     """(out (B, OUT_CAP) uint8, used (B,) int32): block b's LZ4 bytes are
     out[b, :used[b]], zero from used[b] on. One launch writes the bytes,
-    255-runs included; no core buffer is made on the card."""
-    B, dev = blocks.shape[0], blocks.device
-    _check(blocks, "blocks", torch.uint8, (B, BLOCK), dev)
-    _check(moff, "moff", torch.int32, (B, BLOCK), dev)
-    if not _on_card(dev):
-        return P.emit_ref(blocks, moff, geo)
-    planes = _planes(geo, B, dev)
-    out = torch.empty((B, OUT_CAP), dtype=torch.uint8, device=dev)
-    _check_aligned(("blocks", blocks), ("moff", moff), ("geo planes", planes),
-                   ("out", out))
-    _launch("lz4_emit", blocks, moff, planes, geo["used"], out, B)
-    return out, geo["used"]
+    255-runs included; no core buffer is made on the card. A span
+    `lz4.emit`."""
+    with trace.span("lz4.emit", bytes=launch_bytes("lz4_emit", _rows(blocks))):
+        B, dev = blocks.shape[0], blocks.device
+        _check(blocks, "blocks", torch.uint8, (B, BLOCK), dev)
+        _check(moff, "moff", torch.int32, (B, BLOCK), dev)
+        if not _on_card(dev):
+            return P.emit_ref(blocks, moff, geo)
+        planes = _planes(geo, B, dev)
+        out = torch.empty((B, OUT_CAP), dtype=torch.uint8, device=dev)
+        _check_aligned(("blocks", blocks), ("moff", moff), ("geo planes", planes),
+                       ("out", out))
+        _launch("lz4_emit", blocks, moff, planes, geo["used"], out, B)
+        return out, geo["used"]
 
 
 def encode_blocks(blocks, ns, W: int = P.W_DEFAULT, tier_b: bool = True):

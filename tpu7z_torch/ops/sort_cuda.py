@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 MAX_PAYLOADS = 3
@@ -136,6 +137,21 @@ def sort_rows_ref(key, *payloads, begin_bit: int = 0):
                  for t in (key,) + payloads)
 
 
+def launch_bytes(key, payloads, begin_bit: int = 0):
+    """Bytes one `sort_rows` call reads and writes by its contract: in
+    each pass every operand is read once and written once, the key in its
+    own carrier where the first pass reads it and the last writes it, as
+    u32 in between, and each payload as its 32 bits. The count table (1 B
+    a key a pass) is left out. The span `sort.rows` carries it as
+    `bytes`, on the CPU path too; 0 for anything that is not a 2-D
+    tensor, which the checks then refuse."""
+    if not isinstance(key, torch.Tensor) or key.dim() != 2 or begin_bit not in BEGIN_BITS:
+        return 0
+    npass = (32 - begin_bit) // 8
+    key_bytes = 2 * key.element_size() + 8 * (npass - 1)
+    return key.numel() * (key_bytes + 8 * npass * len(payloads))
+
+
 def sort_rows(key, *payloads, begin_bit: int = 0):
     """Sort each row of `key` (B, N) ascending, stably: keys equal in the
     bits sorted keep their input order. Returns (key_sorted,
@@ -145,17 +161,19 @@ def sort_rows(key, *payloads, begin_bit: int = 0):
     only, keeping the input order among keys equal there. That is the
     full order when each row arrives sorted by its low begin_bit bits:
     the LZ4 matcher's keys `hash << 16 | pos`, in position order, sort in
-    two 8-bit passes with begin_bit=16 instead of four."""
-    _check(key, payloads, begin_bit)
-    dev = key.device
-    if dev.type == "cpu":
-        return sort_rows_ref(key, *payloads, begin_bit=begin_bit)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    outs, scratch = buffers(key, payloads, begin_bit)
-    if key.numel():
-        _launch(key, payloads, outs, scratch, begin_bit)
-    return tuple(outs)
+    two 8-bit passes with begin_bit=16 instead of four. A span
+    `sort.rows`."""
+    with trace.span("sort.rows", bytes=launch_bytes(key, payloads, begin_bit)):
+        _check(key, payloads, begin_bit)
+        dev = key.device
+        if dev.type == "cpu":
+            return sort_rows_ref(key, *payloads, begin_bit=begin_bit)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        outs, scratch = buffers(key, payloads, begin_bit)
+        if key.numel():
+            _launch(key, payloads, outs, scratch, begin_bit)
+        return tuple(outs)
 
 
 def buffers(key, payloads, begin_bit):

@@ -35,6 +35,7 @@ from ..ops import lz4_cuda
 from ..ops import lz4_plane as P
 from ..ops import match
 from ..ops.hashing import xxh32_native
+from ..utils import trace
 from . import mesh
 
 
@@ -46,12 +47,14 @@ def split_blocks(data: bytes, device, first: int = 0, count: int | None = None):
     N = P.BLOCK
     if count is None:
         count = max(1, -(-len(data) // N))
-    src = np.frombuffer(data, dtype=np.uint8)[first * N:(first + count) * N]
-    blocks = np.zeros(count * N, dtype=np.uint8)
-    blocks[:src.size] = src
-    ns = np.clip(len(data) - (first + np.arange(count)) * N, 0, N).astype(np.int32)
-    return (torch.from_numpy(blocks.reshape(count, N)).to(device),
-            torch.from_numpy(ns).to(device))
+    with trace.span("entry.split"):
+        src = np.frombuffer(data, dtype=np.uint8)[first * N:(first + count) * N]
+        blocks = np.zeros(count * N, dtype=np.uint8)
+        blocks[:src.size] = src
+        ns = np.clip(len(data) - (first + np.arange(count)) * N, 0, N).astype(np.int32)
+    with trace.span("entry.h2d"):
+        return (torch.from_numpy(blocks.reshape(count, N)).to(device),
+                torch.from_numpy(ns).to(device))
 
 
 def _all_gather(t, group):
@@ -78,7 +81,8 @@ def assemble(out, used, blocks, ns):
     szword = torch.where(store, 1 << 31, 0) | sizes
     seg = torch.where(n > 0, sizes + 4, 0)
     offs = len(HEADER) + torch.cumsum(seg, 0) - seg
-    total = len(HEADER) + int(seg.sum())
+    with trace.span("read.lz4_assemble_total"):
+        total = len(HEADER) + int(seg.sum())
     j = torch.arange(len(HEADER), total, dtype=torch.int64, device=dev)
     # which block each byte falls in, and where in that block's segment
     b = (torch.searchsorted(offs, j, right=True) - 1).clamp(0, B - 1)
@@ -99,17 +103,26 @@ def shard_compress_lz4_device(data: bytes, group=None, *, W: int = P.W_DEFAULT,
     """Compress `data` into one .lz4 frame with the device block encoder,
     each rank of `group` encoding an equal contiguous span of blocks; every
     rank returns the same bytes. tier_b=False drops the sorted-neighbour
-    candidate tiers. Runs on the CUDA card unless `device` names another."""
-    size, rank = mesh.world(group, device)
-    dev = resolve_device(device)
-    nb = max(1, -(-len(data) // P.BLOCK))
-    k = -(-nb // size)
-    blocks, ns = split_blocks(data, dev, rank * k, k)
-    out, used = lz4_cuda.encode_blocks(blocks, ns, W, tier_b)
-    if group is not None:
-        out, used, blocks, ns = (_all_gather(t, group) for t in (out, used, blocks, ns))
-    frame = assemble(out, used, blocks, ns)
-    return frame.cpu().numpy().tobytes()
+    candidate tiers. Runs on the CUDA card unless `device` names another.
+    The call is a root span, `entry.lz4_device`, over the spans of its
+    parts: `entry.split`, `entry.h2d`, the encoder's, `collective.all_gather`
+    (a group only), `entry.assemble`, `entry.d2h` and `entry.tobytes`."""
+    with trace.span("entry.lz4_device", size=len(data)):
+        size, rank = mesh.world(group, device)
+        dev = resolve_device(device)
+        nb = max(1, -(-len(data) // P.BLOCK))
+        k = -(-nb // size)
+        blocks, ns = split_blocks(data, dev, rank * k, k)
+        out, used = lz4_cuda.encode_blocks(blocks, ns, W, tier_b)
+        if group is not None:
+            with trace.span("collective.all_gather"):
+                out, used, blocks, ns = (_all_gather(t, group) for t in (out, used, blocks, ns))
+        with trace.span("entry.assemble"):
+            frame = assemble(out, used, blocks, ns)
+        with trace.span("entry.d2h"):
+            frame = frame.cpu()
+        with trace.span("entry.tobytes"):
+            return frame.numpy().tobytes()
 
 
 def sharded_find_matches(blocks, lengths, group=None, *, hashlog: int = 16,

@@ -5,8 +5,8 @@ clock elsewhere, where a call ends when it returns); `timed` and
 `timed_launches` take the median of its samples. `busy_share` reads one
 `trace.profile` trace: the host window of an annotated region and the
 union of the device's busy intervals inside it. `traced_encode` traces
-one `encode_blocks` call, each of its stages annotated, and reads that
-trace.
+one `encode_blocks` call, whose stages name themselves in the trace (the
+encoder's `lz4.*` spans), and reads that trace.
 """
 
 from __future__ import annotations
@@ -105,7 +105,9 @@ def busy_share(trace_dir, window_name):
 
 def traced_encode(blocks, ns, W, workdir):
     """One `encode_blocks(blocks, ns, W)` on the card under `trace.profile`,
-    the whole call annotated "encode_blocks" and each stage by its name.
+    the whole call annotated "encode_blocks"; each stage is a span of the
+    encoder's own (`lz4.candidates`, `lz4.match`, `lz4.parse`,
+    `lz4.geometry`, `lz4.emit`), so a region of the trace.
     The trace goes to a directory made in `workdir` and removed after.
     Returns ((out, used), `busy_share` of the call with its "idle_share"
     and "segments_allocated", the device memory segments the caching
@@ -118,16 +120,7 @@ def traced_encode(blocks, ns, W, workdir):
         t = time.perf_counter()
         with trace.profile(logdir):
             with trace.annotate("encode_blocks"):
-                with trace.annotate("candidates"):
-                    so8, so4a, so4b = K.candidates(blocks, ns)
-                with trace.annotate("lz4_match"):
-                    mlen, moff = K.match_lengths(blocks, ns, so8, so4a, so4b, W)
-                with trace.annotate("lz4_parse"):
-                    st = K.parse(mlen)
-                with trace.annotate("lz4_geometry"):
-                    geo = K.geometry(mlen, moff, st, ns)
-                with trace.annotate("lz4_emit"):
-                    result = K.emit(blocks, moff, geo)
+                result = K.encode_blocks(blocks, ns, W)
                 torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         segments = torch.cuda.memory_stats(blocks.device)["segment.all.allocated"] - segments
