@@ -5,12 +5,13 @@
 
 The port's counterpart of bench.py. The headline is the device LZ4 block
 encoder, `tpu7z_torch.ops.lz4_cuda.encode_blocks` (the candidate stage
-with its two `sort_rows` launches, then lz4_match, lz4_parse,
-lz4_geometry and lz4_emit), at W = 0 over the first `--mb` MiB (32 by
-default) of the deterministic corpus, as 64 KiB blocks already resident
-on the card. It is timed with CUDA events, one warm-up and then the
-median of 5 calls (min and max beside it); the wrapper's host reads of
-the block lengths are inside the window, as a caller pays them.
+as lz4_keys, one `sort_rows` launch and lz4_probe, then lz4_match,
+lz4_parse, lz4_geometry and lz4_emit), at W = 0 over the first `--mb`
+MiB (32 by default) of the deterministic corpus, as 64 KiB blocks
+already resident on the card. It is timed with CUDA events, one warm-up
+and then the median of 5 calls (min and max beside it); the wrapper's
+host reads of the block lengths are inside the window, as a caller pays
+them.
 
 Untimed, every block is decoded by the port's native host decoder and
 compared with its input; `device_ratio` is bytes / sum(min(used, 65540))

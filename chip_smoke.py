@@ -8,9 +8,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      tpu7z_torch/csrc (the kernels with nvcc, the host libraries with
      c++: xxh32, XXH3, CRC, AES, the LZ4, zstd and LZMA codecs), one process per
      source, all at once;
-  2. each of the four encoder kernels against its plain PyTorch version
+  2. each of the six encoder kernels against its plain PyTorch version
      on the card, exact equality, on test patterns, short blocks, the
-     edge blocks of the row kernels' joins and of lz4_emit's row spans,
+     edge blocks of the row kernels' joins, of lz4_emit's row spans and
+     of the candidate stage (text cut to 0, 11, 12 and 13 bytes, an
+     all-zero block, a block whose last 8 bytes are non-zero),
      the first 2 MiB of the corpus (W = 0 and 16) and the whole 32 MiB
      corpus (W = 0, the main path's shapes); lz4_parse also on synthetic
      mlen planes (random capped and uncapped values, defer chains, 4 and 0
@@ -20,7 +22,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      its plain version, exactly, on random matcher keys with two payloads,
      fully random unique keys (N = 16384 and 65536, 0 and 3 payloads),
      ragged rows (N = 1000 and 12345), the corpus's tier-B and tier-B4
-     keys and the match finder's keys (sentinels, short rows); and the
+     keys (int64, and both tiers' int32 keys as one set of rows, as the
+     path sorts them) and the match finder's keys (sentinels, short
+     rows); and the
      tile-parallel design's edges: a short last tile (N = 1, 4095, 4096,
      4097, 12345, 65535) as int32 and as int64 with NaN-pattern float32
      payloads, every begin_bit (0, 8, 16, 24) with 0 and 3 payloads, an
@@ -29,8 +33,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      with duplicate keys and an int32 payload at every begin_bit, and the
      match finder's keys for 4 MiB rows at hashlog 12, 20 and 31;
   3. the main path: `shard_compress_lz4_device` over the 32 MiB corpus on
-     the card, launch counts per kernel (each encoder kernel once, two
-     row sorts), the frame decoded by the port's decoder (its blocks by
+     the card, launch counts per kernel (each encoder kernel once, one
+     row sort; one lz4_keys, sort_rows and lz4_probe an `encode_blocks`
+     call with the sorted tiers, none without), the frame decoded by the
+     port's decoder (its blocks by
      the native host decoder, csrc/lz4_host.cpp; every 16th block also by
      its numpy twin `decompress_block_ref`, and the two compared), and the
      compression ratio checked; the decode timed serially, block-parallel
@@ -45,8 +51,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. times on the card (CUDA events, median of 5 after a warm-up) for the
      whole encoder, each kernel through its wrapper and as its launch
      alone (outputs preallocated, 10 launches between the events), its
-     plain version, the row sort (as the path calls it with int64 keys,
-     with int32 keys, and as its launches alone; and at 8 rows of 4 MiB
+     plain version, each kernel's bound by `launch_bytes` for lz4_keys
+     and lz4_probe, the row sort (as the path calls it, both tiers'
+     int32 keys as 2B rows, and as its launches alone; and at 8 rows of 4 MiB
      with a payload, as `find_matches` calls it at hashlog 20) beside
      `torch.sort`, the sort order `find_matches` takes at 64 KiB rows,
      `find_matches` with either sort at both row lengths; registers,
@@ -198,6 +205,8 @@ BENCH_TIMEOUT_S = 600
 SOURCE = "tpu7z_torch/csrc/lz4_stages.cu"
 SORT_SOURCE = "tpu7z_torch/csrc/sort.cu"
 REPLACES = {
+    "lz4_keys": "none: tpu7z/ops/lz4_plane.py:174-248, XLA's lax.sort tiers",
+    "lz4_probe": "none: tpu7z/ops/lz4_plane.py:174-248, XLA's lax.sort tiers",
     "lz4_match": "tpu7z/ops/lz4_pallas.py:58",
     "lz4_parse": "tpu7z/ops/lz4_pallas.py:72",
     "lz4_geometry": "tpu7z/ops/lz4_pallas.py:77",
@@ -267,6 +276,25 @@ def emit_edges(block):
     return np.stack(blocks), np.array(ns, np.int32)
 
 
+def candidate_edges(block):
+    """Blocks on the edges of the candidate stage: text cut to lengths about
+    the tail guard (0, 11, 12, 13) and a whole text block, an all-zero
+    block (every hash ties, so the order is by position alone) and a block
+    whose last 8 bytes are non-zero (its last windows reach the zero words
+    past the end)."""
+    rng = np.random.default_rng(7)
+    words = [b"alpha ", b"beta ", b"gamma ", b"delta ", b"zstd ", b"tpu "]
+    text = b"".join(words[i] for i in rng.integers(0, 6, 14000))[:block].ljust(block, b" ")
+    tail = bytearray(text)
+    tail[1000:1008] = b"abcd\0\0\0\0"
+    tail[2000:2008] = b"abcdabcd"
+    tail[-8:] = b"abcdabcd"
+    pats = [(text[:n].ljust(block, b"\0"), n) for n in (0, 11, 12, 13, block)]
+    pats += [(bytes(block), block), (bytes(tail), block)]
+    blocks = np.stack([np.frombuffer(d, np.uint8) for d, _ in pats])
+    return blocks, np.array([n for _, n in pats], np.int32)
+
+
 def check_emit_edges(geo):
     """The edge blocks do what they are for: long runs start at each of the
     last 4 positions of a row, one after row 1's last position, and `used`
@@ -287,9 +315,11 @@ class Stages:
     calls on the same inputs."""
 
     def __init__(self, P, K, blocks, ns, W):
-        self.P, self.W = P, W
+        self.P, self.K, self.W = P, K, W
         self.blocks = blocks
-        cand = P.candidates(P.phase0_words(blocks), ns)
+        keys = P.candidate_keys(blocks)
+        skeys = P.sort_keys(keys.view(-1, P.BLOCK)).view(keys.shape)
+        cand = P.candidate_probe(blocks, skeys, ns)
         mlen, moff = P.match_lengths_ref(blocks, ns, *cand, W)
         st = P.phase3_parse(mlen)
         geo = P.phase4_geometry(mlen, moff, st, ns)
@@ -302,6 +332,9 @@ class Stages:
         planes = K._planes(kgeo, B, blocks.device)
         # each kernel's launch with its outputs preallocated
         self.launch_args = {
+            "lz4_keys": (blocks, torch.empty_like(keys), B),
+            "lz4_probe": (blocks, skeys, ns, torch.empty((3, *blocks.shape), dtype=torch.int32,
+                                                          device=blocks.device), B),
             "lz4_match": (blocks, ns, *cand, torch.empty_like(mlen),
                           torch.empty_like(moff), B, W),
             "lz4_parse": (mlen, torch.empty_like(st, dtype=torch.uint8), B),
@@ -312,10 +345,15 @@ class Stages:
             "lz4_emit": (blocks, moff, planes, kgeo["used"],
                          torch.empty_like(out), B),
         }
-        self.want = {"lz4_match": [mlen, moff], "lz4_parse": [st],
+        self.want = {"lz4_keys": [keys], "lz4_probe": list(cand),
+                     "lz4_match": [mlen, moff], "lz4_parse": [st],
                      "lz4_geometry": [geo[k] for k in names],
                      "lz4_emit": [out, used]}
         self.calls = {
+            "lz4_keys": (lambda: K.candidate_keys(blocks), lambda: P.candidate_keys(blocks),
+                         lambda r: [r]),
+            "lz4_probe": (lambda: K.candidate_probe(blocks, skeys, ns),
+                          lambda: P.candidate_probe(blocks, skeys, ns), list),
             "lz4_match": (lambda: K.match_lengths(blocks, ns, *cand, W),
                           lambda: P.match_lengths_ref(blocks, ns, *cand, W),
                           list),
@@ -335,6 +373,7 @@ class Stages:
         the fields of a sequence), only those count."""
         P, B = self.P, self.blocks.shape[0]
         BLOCK, ROW = P.BLOCK, P.ROW
+        K = self.K
         g = {k: self.geo[k] > 0 for k in ("glen", "anchor", "kept", "mstart",
                                            "ml_ext")}
         e1 = g["anchor"] & (self.geo["e"] >= 1)
@@ -355,6 +394,11 @@ class Stages:
         after[:, :, 1:] = cursor[:, :, :-1]
         scal = 4 * B
         return {
+            # the candidate kernels by their contract (launch_bytes): the
+            # block in, both tiers' keys out; the block, the sorted keys
+            # and ns in, three planes out
+            "lz4_keys": K.launch_bytes("lz4_keys", B),
+            "lz4_probe": K.launch_bytes("lz4_probe", B),
             # three candidate planes (and the block for the W window) in;
             # mlen and moff out
             "lz4_match": 4 * 3 * B * BLOCK + (B * BLOCK if self.W else 0)
@@ -2187,6 +2231,8 @@ def sort_inputs(dev, corpus_blocks, corpus_ns, P, M):
     words = P.phase0_words(corpus_blocks)
     for name, key in (("tier_b", P.tier_b_key(words)), ("tier_b4", P.tier_b4_key(words))):
         cases += [(name, key, (), 16), (name, key, (), 0)]
+    # the main path's sort: both tiers' int32 keys as one set of 2B rows
+    cases.append(("both_tiers_int32", P.candidate_keys(corpus_blocks).view(-1, P.BLOCK), (), 16))
     short = corpus_ns.clone()
     short[::7] = torch.arange(0, short.shape[0], 7, device=dev, dtype=torch.int32) * 97 % P.BLOCK
     pos = torch.arange(P.BLOCK, dtype=torch.int32, device=dev).expand(short.shape[0], -1)
@@ -2282,18 +2328,16 @@ def profile_kernels(fn, reps=10):
 
 def sort_kernel_times(S, key):
     """Device time of each of the sort's kernels, from a torch.profiler
-    trace of ten launches as the main path makes them (int64 keys,
-    begin_bit 16): name -> {"launches", "ms" a launch, "gb_s"} with the
-    bytes each kernel must move for these keys (count reads the keys,
+    trace of ten launches as the main path makes them (both tiers' int32
+    keys, begin_bit 16): name -> {"launches", "ms" a launch, "gb_s"} with
+    the bytes each kernel must move for these keys (count reads the keys,
     scatter reads and writes them, scan reads and writes the count
     table). Empty where the trace shows no device time."""
-    names = {"count_kernel<unsigned long>": "count_i64", "count_kernel<unsigned int>": "count_u32",
-             "scan_kernel": "scan", "scatter_kernel<0, unsigned long, unsigned int>":
-             "scatter_i64_u32", "scatter_kernel<0, unsigned int, unsigned long>": "scatter_u32_i64"}
+    names = {"count_kernel<unsigned int>": "count_u32", "scan_kernel": "scan",
+             "scatter_kernel<0, unsigned int, unsigned int>": "scatter_u32_u32"}
     outs, scratch = S.buffers(key, (), 16)
     n = key.numel()
-    moved = {"count_i64": 8 * n, "count_u32": 4 * n, "scatter_i64_u32": 12 * n,
-             "scatter_u32_i64": 12 * n, "scan": 2 * 4 * scratch[1].numel()}
+    moved = {"count_u32": 4 * n, "scatter_u32_u32": 8 * n, "scan": 2 * 4 * scratch[1].numel()}
     times = {}
     for full, (count, ms) in profile_kernels(lambda: S._launch(key, (), outs, scratch, 16)).items():
         name = next((v for k, v in names.items() if k in full), None)
@@ -2361,9 +2405,11 @@ def main() -> int:
     # 2. every kernel against its plain version, exact
     pb, pn = patterns(P.BLOCK)
     eb, en = emit_edges(P.BLOCK)
+    kb, kn = candidate_edges(P.BLOCK)
     cb, cn = sharded.split_blocks(corpus, dev)
     inputs = [("patterns", torch.from_numpy(pb).to(dev), torch.from_numpy(pn).to(dev)),
               ("emit_edges", torch.from_numpy(eb).to(dev), torch.from_numpy(en).to(dev)),
+              ("candidate_edges", torch.from_numpy(kb).to(dev), torch.from_numpy(kn).to(dev)),
               ("corpus_2MiB", cb[:32].contiguous(), cn[:32].contiguous())]
     runs = [(name, b, n, W) for name, b, n in inputs for W in (0, 16)]
     runs.append(("corpus_32MiB", cb, cn, 0))
@@ -2453,8 +2499,19 @@ def main() -> int:
     for k in K.KERNELS:
         if launches[k] != 1:
             raise AssertionError(f"main path: {launches[k]} launches of {k}, expected 1")
-    if launches["sort_rows"] != 2:
-        raise AssertionError(f"main path: {launches['sort_rows']} row sorts, expected 2")
+    if launches["sort_rows"] != 1:
+        raise AssertionError(f"main path: {launches['sort_rows']} row sorts, expected 1")
+    # the candidate stage: one lz4_keys, one sort_rows and one lz4_probe an
+    # encode_blocks call with the sorted tiers, none without
+    for tier_b, want in ((True, 1), (False, 0)):
+        reset_counts()
+        K.encode_blocks(cb[:3], cn[:3], 0, tier_b=tier_b)
+        torch.cuda.synchronize()
+        c = counts()
+        if [c["lz4_keys"], c["sort_rows"], c["lz4_probe"]] != [want] * 3:
+            raise AssertionError(f"encode_blocks(tier_b={tier_b}): launches {c}, expected "
+                                 f"{want} of lz4_keys, sort_rows and lz4_probe")
+        log(f"encode_blocks(3 blocks, tier_b={tier_b}): launches {c}")
     lz4_decode = lz4_decode_times(framed, corpus, frame, block, P.BLOCK)
     # the native decoder against its numpy twin on every 16th block
     checked = 0
@@ -2534,44 +2591,42 @@ def main() -> int:
     enc_ms = timed(lambda: K.encode_blocks(cb, cn, 0))
     log(f"encode_blocks {len(corpus) / 2**20:.0f} MiB ({cb.shape[0]} blocks, W=0): {enc_ms:.3f} ms, "
         f"{len(corpus) / enc_ms / 1e3:.1f} MB/s")
-    words = P.phase0_words(cb)
     cand_ms = timed(lambda: K.candidates(cb, cn))
-    cand_plain_ms = timed(lambda: P.candidates(words, cn))
-    log(f"candidates (tiers B and B4): {cand_ms:.3f} ms with the row-sort kernel, "
-        f"{cand_plain_ms:.3f} ms plain (torch.sort)")
+    cand_plain_ms = timed(lambda: P.candidates(cb, cn))
+    log(f"candidates (tiers B and B4): {cand_ms:.3f} ms through lz4_keys, sort_rows and "
+        f"lz4_probe, {cand_plain_ms:.3f} ms plain (torch.sort)")
     sort_row = {}
-    for tier, key in (("tier_b", P.tier_b_key(words)), ("tier_b4", P.tier_b4_key(words))):
-        # as the path calls it (int64 keys through the wrapper), with int32
-        # keys through the wrapper, and as the launches alone (outputs and
-        # scratch preallocated)
-        k32 = S.raw_bits(key)
-        path_ms = timed(lambda: S.sort_rows(key, begin_bit=16))
-        int32_ms = timed(lambda: S.sort_rows(k32, begin_bit=16))
-        outs, scratch = S.buffers(key, (), 16)
-        kernel_ms = timed_launches(lambda: S._launch(key, (), outs, scratch, 16))
-        plain_ms = timed(lambda: S.sort_rows_ref(key, begin_bit=16))
-        lib_ms = timed(lambda: torch.sort(key, dim=1, stable=True))
-        # each key read once and written once, in its carrier
-        bound_ms = 2 * key.numel() * key.element_size() / HBM_BYTES_PER_S * 1e3
-        int32_bound_ms = 2 * k32.numel() * 4 / HBM_BYTES_PER_S * 1e3
-        log(f"sort_rows {tier} keys {tuple(key.shape)}, begin_bit=16: as the path calls it "
-            f"(int64 in and out) {path_ms:.3f} ms, launches alone {kernel_ms:.3f} ms, "
-            f"bound {bound_ms:.3f} ms; int32 keys {int32_ms:.3f} ms, bound {int32_bound_ms:.3f} ms; "
-            f"plain {plain_ms:.3f} ms, torch.sort (int64, stable) {lib_ms:.3f} ms")
-        sort_row[tier] = {"ms": path_ms, "path_ms": path_ms, "kernel_ms": kernel_ms,
-                          "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": lib_ms,
-                          "int32_ms": int32_ms, "int32_bound_ms": int32_bound_ms}
-        del outs, scratch
+    # the sort as the path calls it (both tiers' int32 keys, 2B rows,
+    # through the wrapper) and as its launches alone (outputs and scratch
+    # preallocated)
+    key = K.candidate_keys(cb).view(-1, P.BLOCK)
+    path_ms = timed(lambda: S.sort_rows(key, begin_bit=16))
+    outs, scratch = S.buffers(key, (), 16)
+    kernel_ms = timed_launches(lambda: S._launch(key, (), outs, scratch, 16))
+    plain_ms = timed(lambda: S.sort_rows_ref(key, begin_bit=16))
+    k64 = key.to(torch.int64) & 0xFFFFFFFF
+    lib_ms = timed(lambda: torch.sort(k64, dim=1, stable=True))
+    # each key read once and written once
+    bound_ms = 2 * key.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"sort_rows both tiers' keys {tuple(key.shape)} int32, begin_bit=16: as the path calls "
+        f"it {path_ms:.3f} ms, launches alone {kernel_ms:.3f} ms, bound {bound_ms:.3f} ms; "
+        f"plain {plain_ms:.3f} ms, torch.sort (int64, stable) {lib_ms:.3f} ms")
+    sort_row["tiers"] = {"shape": list(key.shape), "ms": path_ms, "path_ms": path_ms,
+                         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "library_ms": lib_ms}
+    del outs, scratch, k64
     sort_info = S.kernel_info()
-    sort_device_ms = sort_kernel_times(S, P.tier_b_key(words))
     for name, info in sort_info.items():
-        dt = sort_device_ms.get(name)
-        dev_time = (f"{dt['ms']:.4f} ms a launch on the device ({dt['launches']} launches "
-                    f"traced), {dt['gb_s']:.1f} GB/s" if dt else "device time not measured")
         log(f"sort_rows {name}: {info['regs']} registers a thread, {info['local_bytes']} local "
             f"(spill) bytes, {info['shared_bytes']} shared bytes and {info['threads']} threads "
-            f"a CTA, {info['ctas_per_sm']} CTAs per SM; {dev_time}")
-        info["device"] = dt
+            f"a CTA, {info['ctas_per_sm']} CTAs per SM")
+    sort_device_ms = sort_kernel_times(S, key)
+    for name, dt in sort_device_ms.items():
+        log(f"sort_rows {name} as the path launches it: {dt['ms']:.4f} ms a launch on the "
+            f"device ({dt['launches']} launches traced), {dt['gb_s']:.1f} GB/s")
+    if not sort_device_ms:
+        log("sort_rows kernels' device times: not measured (the trace shows no device time)")
+    sort_row["tiers"]["device"] = sort_device_ms
     fm_ms = timed(lambda: M.find_matches(cb, cn))
     fm_plain_ms = timed(lambda: M.find_matches(cb, cn, sort=S.sort_rows_ref))
     log(f"find_matches ({cb.shape[0]} blocks): {fm_ms:.3f} ms with the row-sort kernel, "
@@ -2580,7 +2635,7 @@ def main() -> int:
     order_ms = timed(lambda: M.sort_order(h, 16))
     log(f"sort_order as find_matches ({cb.shape[0]} blocks) calls it: int32 keys h << 15, "
         f"int32 position payload, begin_bit 8: {order_ms:.3f} ms")
-    sort_row["tier_b"]["find_matches_order_ms"] = order_ms
+    sort_row["tiers"]["find_matches_order_ms"] = order_ms
     # rows of 4 MiB: the sort as find_matches calls it at hashlog 20 (int32
     # keys, an int32 position payload, begin_bit 8), and find_matches
     _, h, _ = M.hashes(big, big_n, 20)
@@ -2603,7 +2658,7 @@ def main() -> int:
         log(f"sort_rows 8 rows of 4 MiB, {name}: {ms:.4f} ms a launch on the device "
             f"({n} launches traced)")
     del outs, scratch, h, key, k64, pos
-    sort_row["tier_b"]["long_rows"] = {
+    sort_row["tiers"]["long_rows"] = {
         "shape": list(big.shape), "begin_bit": bb, "payloads": 1, "ms": long_ms,
         "kernel_ms": long_kernel_ms, "plain_ms": long_plain_ms, "library_ms": long_lib_ms,
         "bound_ms": long_bound_ms, "device_ms": {k: v[1] for k, v in long_device.items()}}
@@ -2640,7 +2695,7 @@ def main() -> int:
     kernels.append({"name": "sort_rows", "route": "cuda", "source": SORT_SOURCE,
                     "replaces": REPLACES["sort_rows"], "launches": launches["sort_rows"],
                     "max_abs_err": errs["sort_rows"], "equal": errs["sort_rows"] == 0,
-                    **sort_row["tier_b"], "bound_by": "bytes", "kernels": sort_info})
+                    **sort_row["tiers"], "bound_by": "bytes", "kernels": sort_info})
 
     # 6. past one device: a process group, the CLI, the native xxh32 and the
     # profiler hooks
@@ -2655,9 +2710,9 @@ def main() -> int:
     c = counts()
     log(f"shard_compress_lz4_device({len(corpus)} bytes, one-rank NCCL group, W=0): "
         f"{len(framed_g)} bytes in {time.time() - t:.2f} s (host clock), launches {c}")
-    if any(c[k] != 1 for k in K.KERNELS) or c["sort_rows"] != 2:
+    if any(c[k] != 1 for k in K.KERNELS) or c["sort_rows"] != 1:
         raise AssertionError(f"one-rank group: launches {c}, expected each encoder kernel "
-                             f"once and two row sorts")
+                             f"once and one row sort")
     if framed_g != framed:
         raise AssertionError("the one-rank group's frame differs from the group-less frame")
     log("one-rank group's frame equals the group-less frame byte for byte (which phase 3 "

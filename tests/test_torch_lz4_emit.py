@@ -47,7 +47,7 @@ def port():
     for name, make in SETS.items():
         b, n = make(P.BLOCK)
         blocks, ns = torch.from_numpy(b), torch.from_numpy(n)
-        cand = P.candidates(P.phase0_words(blocks), ns)
+        cand = P.candidates(blocks, ns)
         for W in WS:
             mlen, moff = P.match_lengths_ref(blocks, ns, *cand, W)
             geo = P.phase4_geometry(mlen, moff, P.phase3_parse(mlen), ns)

@@ -178,7 +178,7 @@ def edge_mlen():
     pats = _edge_blocks()
     blocks = torch.from_numpy(np.stack([np.frombuffer(d, np.uint8) for d, _ in pats]))
     ns = torch.tensor([n for _, n in pats], dtype=torch.int32)
-    cand = P.candidates(P.phase0_words(blocks), ns)
+    cand = P.candidates(blocks, ns)
     return {W: P.match_lengths_ref(blocks, ns, *cand, W)[0].numpy() for W in WS}
 
 

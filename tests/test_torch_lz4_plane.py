@@ -77,7 +77,7 @@ def port(batch):
     blocks = torch.from_numpy(batch[0])
     ns = torch.from_numpy(batch[1])
     words = P.phase0_words(blocks)
-    so8, so4a, so4b = P.candidates(words, ns)
+    so8, so4a, so4b = P.candidates(blocks, ns)
     res = {}
     for W in WS:
         mlen, moff = P.match_lengths_ref(blocks, ns, so8, so4a, so4b, W)
@@ -143,6 +143,114 @@ def test_words_and_candidates(idx, batch, port, jfn):
     so4a, so4b = jfn["tier_b4"](jv.reshape(1, -1), ns)
     for j, ref in zip(port["cand"], (so8, so4a, so4b)):
         assert np.array_equal(_flat(ref), j[idx].numpy())
+
+
+def _edge_blocks():
+    """The candidate stage's edges: text cut to lengths about the tail
+    guard (ns - 12) and a whole block, an all-zero block (every hash ties,
+    so the order is by position alone) and a block whose last 8 bytes are
+    non-zero (its last windows reach the zero words past the end)."""
+    text = _patterns()[0][0]
+    blocks = [(text[:n].ljust(P.BLOCK, b"\0"), n) for n in (0, 11, 12, 13, P.BLOCK)]
+    tail = bytearray(text)
+    tail[1000:1008] = b"abcd\0\0\0\0"
+    tail[2000:2008] = b"abcdabcd"
+    tail[-8:] = b"abcdabcd"
+    return blocks + [(bytes(P.BLOCK), P.BLOCK), (bytes(tail), P.BLOCK)]
+
+
+EDGE_NAMES = ("n0", "n11", "n12", "n13", "n65536", "all_zero", "last8_nonzero")
+ALL_NAMES = NAMES + EDGE_NAMES
+
+
+@pytest.fixture(scope="module")
+def edge_batch():
+    pats = _edge_blocks()
+    return (np.stack([np.frombuffer(d, np.uint8) for d, _ in pats]),
+            np.array([n for _, n in pats], np.int32))
+
+
+def _one(batch, edge_batch, idx):
+    """Block idx of ALL_NAMES as (1, BLOCK) uint8 and (1,) int32 tensors."""
+    blocks, ns = batch if idx < len(NAMES) else edge_batch
+    i = idx % len(NAMES) if idx < len(NAMES) else idx - len(NAMES)
+    return (torch.from_numpy(blocks[i:i + 1].copy()),
+            torch.from_numpy(ns[i:i + 1].copy()))
+
+
+def _int64_tiers(blocks, ns):
+    """The candidate stage as the port ran it on int64 planes before its
+    kernels: each tier's keys, sorted with their words gathered into that
+    order, the K = 2 probes, the unsort by scatter, the tail guard. Returns
+    the two key planes and (so8, so4a, so4b)."""
+    words = P.phase0_words(blocks)
+    nxt = torch.zeros_like(words)
+    nxt[:, :-4] = words[:, 4:]
+    pos = torch.arange(P.BLOCK)
+    keep = pos < (ns.to(torch.int64) - P.TAIL_GUARD).clamp(min=0)[:, None]
+
+    def probe(skey, sw, k):
+        ok = (skey[:, :-k] >> 16) == (skey[:, k:] >> 16)
+        for w in sw:
+            ok &= w[:, :-k] == w[:, k:]
+        off = torch.zeros_like(skey)
+        off[:, k:] = torch.where(ok, (skey[:, k:] & 0xFFFF) - (skey[:, :-k] & 0xFFFF), 0)
+        return off
+
+    def unsort(skey, vals):
+        out = torch.zeros_like(vals).scatter_(1, skey & 0xFFFF, vals)
+        return torch.where(keep, out, 0).to(torch.int32)
+
+    kb, k4 = P.tier_b_key(words), P.tier_b4_key(words)
+    sb = torch.sort(kb, dim=1, stable=True).values
+    s4 = torch.sort(k4, dim=1, stable=True).values
+    sw8 = [w.gather(1, sb & 0xFFFF) for w in (words, nxt)]
+    sw4 = [words.gather(1, s4 & 0xFFFF)]
+    so8 = probe(sb, sw8, 1)
+    so8 = torch.where(so8 == 0, probe(sb, sw8, 2), so8)
+    return (kb, k4), (unsort(sb, so8), unsort(s4, probe(s4, sw4, 1)),
+                      unsort(s4, probe(s4, sw4, 2)))
+
+
+every_block = pytest.mark.parametrize("idx", range(len(ALL_NAMES)), ids=ALL_NAMES)
+
+
+@every_block
+def test_candidate_keys_equal_int64_keys(idx, batch, edge_batch):
+    blocks, ns = _one(batch, edge_batch, idx)
+    keys = P.candidate_keys(blocks)
+    assert keys.dtype == torch.int32 and tuple(keys.shape) == (2, 1, P.BLOCK)
+    for got, want in zip(keys, _int64_tiers(blocks, ns)[0]):
+        assert torch.equal(got.to(torch.int64) & 0xFFFFFFFF, want)
+
+
+@every_block
+def test_candidate_probe_equals_int64_path(idx, batch, edge_batch):
+    blocks, ns = _one(batch, edge_batch, idx)
+    keys = P.candidate_keys(blocks)
+    skeys = P.sort_keys(keys.view(-1, P.BLOCK)).view(keys.shape)
+    got = P.candidate_probe(blocks, skeys, ns)
+    for g, w in zip(got, _int64_tiers(blocks, ns)[1]):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("idx", range(len(EDGE_NAMES)), ids=EDGE_NAMES)
+def test_candidates_on_edges_equal_int64_path_and_tpu7z(idx, batch, edge_batch, jfn):
+    """The composition (keys, one sort of both tiers' rows, probe), plain
+    and through the wrapper, against the int64 path and tpu7z's tiers."""
+    blocks, ns = _one(batch, edge_batch, len(NAMES) + idx)
+    got = P.candidates(blocks, ns)
+    _, want = _int64_tiers(blocks, ns)
+    wrapped = lz4_cuda.candidates(blocks, ns)
+    jv = jfn["words"](jnp.asarray(blocks.numpy()[0].astype(np.int32).reshape(P.NROWS, P.ROW)))
+    jns = jnp.asarray(ns.numpy())
+    jtiers = (jfn["tier_b"](jv.reshape(1, -1), jns),) + tuple(
+        jfn["tier_b4"](jv.reshape(1, -1), jns))
+    for g, w, k, j in zip(got, want, wrapped, jtiers):
+        assert torch.equal(g, w) and torch.equal(k, w)
+        assert np.array_equal(_flat(j), w[0].numpy())
+    if int(ns[0]) <= P.TAIL_GUARD:
+        assert not any(bool(g.any()) for g in got)
 
 
 @cases

@@ -73,7 +73,7 @@ def port(batch):
     blocks = torch.from_numpy(batch[0])
     ns = torch.from_numpy(batch[1])
     words = P.phase0_words(blocks)
-    so8, so4a, so4b = P.candidates(words, ns)
+    so8, so4a, so4b = P.candidates(blocks, ns)
     res = {"words": words, "cand": (so8, so4a, so4b)}
     for W in WS:
         mlen, moff = P.match_lengths_ref(blocks, ns, so8, so4a, so4b, W)

@@ -18,7 +18,8 @@ from tpu7z_torch.utils import trace
 BLOCK = lz4_plane.BLOCK
 LZ4_SPANS = ["entry.lz4_device", "entry.split", "entry.h2d", "lz4.candidates", "sort.rows",
              "read.lz4_check_ns", "lz4.match", "lz4.parse", "lz4.geometry", "lz4.emit",
-             "entry.assemble", "read.lz4_assemble_total", "entry.d2h", "entry.tobytes"]
+             "entry.assemble", "read.lz4_assemble_total", "entry.d2h", "entry.tobytes",
+             "lz4.keys", "lz4.probe"]
 # the gzip writer's blocking reads before its result, and how many a call
 GZIP_READS = {"read.lz_valid": 1, "read.lz_chain_ends": 1, "read.lz_panel_rows": 1,
               "read.lz_bounds": 1, "read.deflate_takes": 1, "read.deflate_literals": 1,
@@ -139,7 +140,7 @@ def test_lz4_path_spans_are_annotations_of_the_request(data, tmp_path):
                          tmp_path)
     counts = collections.Counter(names)
     assert set(counts) == set(LZ4_SPANS)
-    assert counts["read.lz4_check_ns"] == 3 and counts["sort.rows"] == 2
+    assert counts["read.lz4_check_ns"] == 3 and counts["sort.rows"] == 1
     assert trace.records() == [] and trace.totals()["count"] == {}    # the profiler alone
 
 
@@ -190,10 +191,14 @@ def test_lz4_launch_bytes_by_hand(data):
     assert got["lz4.geometry"] == B * (4 * N + N + 4) + B * (G * 4 * N + 4 + 4)
     # used, glen and kept read; out written whole
     assert got["lz4.emit"] == B * (4 + 2 * 4 * N) + B * lz4_plane.OUT_CAP
-    # two sorts of int64 keys, begin_bit 16: read 8 and write 4, then read
-    # 4 and write 8, a key
+    # the block read; both tiers' int32 keys written
+    assert got["lz4.keys"] == B * N + B * 2 * 4 * N
+    # the block, both tiers' sorted keys and ns read; so8, so4a, so4b written
+    assert got["lz4.probe"] == B * (N + 2 * 4 * N + 4) + B * 3 * 4 * N
+    # one sort of both tiers' 2B rows of int32 keys, begin_bit 16: read 4
+    # and write 4, twice, a key
     sorts = [e["bytes"] for e in ev if e["name"] == "sort.rows"]
-    assert sorts == [B * N * 24] * 2
+    assert sorts == [2 * B * N * 16]
     assert lz4_cuda.launch_bytes("lz4_match", B, 16) == got["lz4.match"] + B * N
 
 

@@ -1,9 +1,11 @@
 // Hand-written Hopper kernels of the LZ4 device block encoder.
 //
 // Four kernels replace the six Pallas TPU kernels of tpu7z/ops/lz4_pallas.py
-// (a1, a2, a3, and b1+b2+c as one). Each works on a batch of B independent
-// 64 KiB blocks; the plain PyTorch version of every kernel is in
-// tpu7z_torch/ops/lz4_plane.py and gives the same integers.
+// (a1, a2, a3, and b1+b2+c as one); two more, lz4_keys and lz4_probe, run
+// the sorted-neighbour candidate tiers that the JAX package left to XLA.
+// Each works on a batch of B independent 64 KiB blocks; the plain PyTorch
+// version of every kernel is in tpu7z_torch/ops/lz4_plane.py and gives the
+// same integers.
 //
 // Built by tpu7z_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -14,7 +16,9 @@
 // Layouts (row-major, contiguous):
 //   blocks   (B, BLOCK)  uint8     raw bytes, zero padded past n
 //   ns       (B,)        int32     valid length of each block
+//   keys     (2, B, BLOCK) int32   uint32 sort keys (tier B, tier B4), raw bits
 //   so*      (B, BLOCK)  int32     sorted-neighbour candidate offsets
+//                                  (lz4_probe writes them as one (3, B, BLOCK))
 //   mlen/moff(B, BLOCK)  int32
 //   is_start (B, BLOCK)  uint8     0/1
 //   geo      (B, G_NPLANES, BLOCK) int32, planes in GeoPlane order
@@ -866,6 +870,150 @@ lz4_emit_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ 
   }
 }
 
+// ---------------------------------------------------------------------------
+// lz4_keys and lz4_probe: replace no Pallas kernel. The JAX package left
+//   its sorted-neighbour tiers to XLA (tpu7z/ops/lz4_plane.py:174-248,
+//   tier_b_candidates and tier_b4_candidates: a lax.sort by hash, the K = 2
+//   probes, a lax.sort back). Here lz4_keys writes both tiers' keys, one
+//   sort_rows launch (csrc/sort.cu) sorts their 2B rows by the hash, and
+//   lz4_probe verifies each sorted entry's two predecessors and puts the
+//   offsets back in position order (lz4_plane.candidate_keys,
+//   candidate_probe). No int64 plane exists on the way.
+//
+// lz4_keys: keys[0][b][p] = hash16(8 bytes at p) << 16 | p and keys[1][b][p]
+// = hash16(4 bytes at p) << 16 | p, the hashes mod 2^32, the bytes zero past
+// the block's end. A thread takes 4 positions: three aligned words of the
+// block (its positions' 8-byte windows end 11 bytes on), two 16-byte stores.
+// Bound: bytes. Per 64 KiB block it reads the block and writes two int32
+// planes (576 KiB): 302 MB per 32 MiB, 0.090 ms at 3.35 TB/s.
+//
+// lz4_probe: one CTA a (block, plane), 3B CTAs, the three of a block next to
+// one another so the block and tier B4's keys meet in L2. The block's bytes
+// go to shared memory with a zero pad, for the byte compares; each sorted
+// entry i compares its hash and its bytes (8 for so8, 4 for so4a and so4b)
+// with entries i-1 and i-2 of its row and writes its offset, as 16 bits
+// (offsets lie in 1..65535), at its own position of the plane staged in
+// shared memory. The sorted keys are a permutation of the positions, so
+// every staged word is written once and nothing is zero-filled. The plane
+// then goes out as coalesced 16-byte stores with the tail guard applied:
+// the random scatter never reaches device memory. 64 KiB + 128 KiB of
+// shared memory, so one 1024-thread CTA an SM.
+// Bound: bytes. By contract per block: the block and both tiers' sorted
+// keys read once, ns, the three planes written (1.31 MiB): 706 MB per
+// 32 MiB, 0.211 ms at 3.35 TB/s. The design reads the block three times
+// and tier B4's keys twice (1.69 MiB a block), the extra reads mostly from
+// L2; its shared-memory work (the byte windows, the scatter) is about 10
+// shared accesses an entry.
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t HASH_C1 = 0x9E3779B1u;
+constexpr uint32_t HASH_C2 = 0x85EBCA77u;
+constexpr int BLOCK_WORDS = BLOCK / 4;
+constexpr int KEYS_THREADS = 256;
+constexpr int PROBE_THREADS = 1024;
+constexpr int PROBE_PAD = 16;  // zero bytes past the block: the last 8-byte window's words
+constexpr int PROBE_SMEM = BLOCK + PROBE_PAD + 2 * BLOCK;  // the block, then the plane as u16
+constexpr int PROBE_PLANES = 3;  // so8, so4a, so4b
+static_assert(BLOCK_WORDS % KEYS_THREADS == 0, "whole CTAs a block");
+constexpr int PROBE_SWEEPS = BLOCK / (LANE_POS * PROBE_THREADS);  // 4 entries a thread a sweep
+static_assert(BLOCK % (LANE_POS * PROBE_THREADS) == 0, "whole sweeps of the sorted row");
+
+__global__ void __launch_bounds__(KEYS_THREADS)
+lz4_keys_kernel(const uint8_t* __restrict__ blocks, int32_t* __restrict__ keys, int B) {
+  const long long t = (long long)blockIdx.x * KEYS_THREADS + threadIdx.x;
+  const int b = (int)(t / BLOCK_WORDS), w = (int)(t % BLOCK_WORDS);
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(blocks + (size_t)b * BLOCK);
+  const uint32_t w0 = src[w];
+  const uint32_t w1 = w + 1 < BLOCK_WORDS ? src[w + 1] : 0u;
+  const uint32_t w2 = w + 2 < BLOCK_WORDS ? src[w + 2] : 0u;
+  const int q = LANE_POS * w;
+  int kb[LANE_POS], k4[LANE_POS];
+#pragma unroll
+  for (int j = 0; j < LANE_POS; ++j) {
+    const uint32_t lo = __funnelshift_r(w0, w1, 8 * j);  // bytes q+j .. q+j+3
+    const uint32_t hi = __funnelshift_r(w1, w2, 8 * j);  // bytes q+j+4 .. q+j+7
+    const uint32_t m = lo * HASH_C1;
+    kb[j] = (int)(((m ^ hi * HASH_C2) >> 16) << 16 | (uint32_t)(q + j));
+    k4[j] = (int)((m >> 16) << 16 | (uint32_t)(q + j));
+  }
+  int32_t* dst = keys + (size_t)b * BLOCK + q;
+  store4(dst, kb[0], kb[1], kb[2], kb[3]);
+  store4(dst + (size_t)B * BLOCK, k4[0], k4[1], k4[2], k4[3]);
+}
+
+__global__ void __launch_bounds__(PROBE_THREADS)
+lz4_probe_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ skeys,
+                 const int32_t* __restrict__ ns, int32_t* __restrict__ so, int B) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* stage = reinterpret_cast<uint16_t*>(smem + BLOCK + PROBE_PAD);
+  const int b = blockIdx.x / PROBE_PLANES, plane = blockIdx.x % PROBE_PLANES;
+  const int lane = lane_id();
+  const size_t base = (size_t)b * BLOCK;
+  const int32_t* sk = skeys + (plane ? (size_t)B * BLOCK : 0) + base;  // tier B, else B4
+  const bool wide = plane == 0;  // tier B carries 8 bytes
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(blocks + base);
+#pragma unroll
+    for (int i = 0; i < BLOCK / 16 / PROBE_THREADS; ++i)
+      reinterpret_cast<uint4*>(smem)[i * PROBE_THREADS + threadIdx.x] =
+          src[i * PROBE_THREADS + threadIdx.x];
+    if (threadIdx.x < PROBE_PAD / 4) reinterpret_cast<uint32_t*>(smem + BLOCK)[threadIdx.x] = 0;
+  }
+  __syncthreads();
+  const uint32_t* sw = reinterpret_cast<const uint32_t*>(smem);
+
+  // entries i0-2 .. i0+3 of the sorted row: their keys and byte windows
+  constexpr int NE = LANE_POS + 2;
+#pragma unroll 1
+  for (int it = 0; it < PROBE_SWEEPS; ++it) {
+    const int i0 = LANE_POS * (it * PROBE_THREADS + threadIdx.x);
+    int cur[LANE_POS];
+    load4(sk + i0, cur);
+    uint32_t e[NE];
+    e[0] = (uint32_t)__shfl_up_sync(FULL, cur[2], 1);
+    e[1] = (uint32_t)__shfl_up_sync(FULL, cur[3], 1);
+    if (lane == 0 && i0 > 0) {
+      e[0] = (uint32_t)sk[i0 - 2];
+      e[1] = (uint32_t)sk[i0 - 1];
+    }
+#pragma unroll
+    for (int j = 0; j < LANE_POS; ++j) e[j + 2] = (uint32_t)cur[j];
+    uint32_t lo[NE], hi[NE];
+#pragma unroll
+    for (int j = 0; j < NE; ++j) {
+      const int p = e[j] & 0xFFFF, a = p >> 2, s = (p & 3) * 8;
+      const uint32_t x1 = sw[a + 1];
+      lo[j] = __funnelshift_r(sw[a], x1, s);
+      hi[j] = wide ? __funnelshift_r(x1, sw[a + 2], s) : 0u;
+    }
+#pragma unroll
+    for (int j = 2; j < NE; ++j) {
+      // the offset to entry j-k where its hash and bytes agree, else 0
+      auto probe = [&](int k) {
+        const bool ok = i0 + j - 2 >= k && (e[j] >> 16) == (e[j - k] >> 16) &&
+                        lo[j] == lo[j - k] && hi[j] == hi[j - k];
+        return ok ? (int)(e[j] & 0xFFFF) - (int)(e[j - k] & 0xFFFF) : 0;
+      };
+      const int o1 = probe(1), o2 = probe(2);
+      const int v = plane == 0 ? (o1 ? o1 : o2) : plane == 1 ? o1 : o2;
+      stage[e[j] & 0xFFFF] = (uint16_t)v;
+    }
+  }
+  __syncthreads();
+
+  const int guard = max(ns[b] - TAIL_GUARD, 0);
+  int32_t* dst = so + (size_t)plane * B * BLOCK + base;
+#pragma unroll 4
+  for (int it = 0; it < PROBE_SWEEPS; ++it) {
+    const int q = LANE_POS * (it * PROBE_THREADS + threadIdx.x);
+    const uint2 v = *reinterpret_cast<const uint2*>(stage + q);
+    const int x[LANE_POS] = {(int)(v.x & 0xFFFF), (int)(v.x >> 16), (int)(v.y & 0xFFFF),
+                             (int)(v.y >> 16)};
+    store4(dst + q, q < guard ? x[0] : 0, q + 1 < guard ? x[1] : 0, q + 2 < guard ? x[2] : 0,
+           q + 3 < guard ? x[3] : 0);
+  }
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -880,24 +1028,33 @@ const char* lz4_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 
 // What the compiler and the card make of each encoder kernel, in the order
 // of KERNELS in ops/lz4_cuda.py (0 lz4_match, at W = 0 as the main path
-// launches it; 1 lz4_parse; 2 lz4_geometry; 3 lz4_emit): registers and
-// local (spill) bytes a thread, static shared bytes and threads a CTA, and
-// resident CTAs per SM.
+// launches it; 1 lz4_parse; 2 lz4_geometry; 3 lz4_emit; 4 lz4_keys;
+// 5 lz4_probe, with its dynamic shared memory): registers and local
+// (spill) bytes a thread, shared bytes (static and dynamic) and threads a
+// CTA, and resident CTAs per SM.
 int lz4_kernel_info(int which, int* regs, int* local_bytes, int* shared_bytes, int* threads,
                     int* ctas_per_sm) {
-  const void* fns[4] = {(const void*)lz4_match_kernel, (const void*)lz4_parse_kernel,
-                        (const void*)lz4_geometry_kernel, (const void*)lz4_emit_kernel};
-  const int nthreads[4] = {ROW_THREADS, PARSE_THREADS, ROW_THREADS, EMIT_THREADS};
-  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+  const void* fns[6] = {(const void*)lz4_match_kernel, (const void*)lz4_parse_kernel,
+                        (const void*)lz4_geometry_kernel, (const void*)lz4_emit_kernel,
+                        (const void*)lz4_keys_kernel, (const void*)lz4_probe_kernel};
+  const int nthreads[6] = {ROW_THREADS, PARSE_THREADS, ROW_THREADS, EMIT_THREADS,
+                           KEYS_THREADS, PROBE_THREADS};
+  if (which < 0 || which > 5) return (int)cudaErrorInvalidValue;
+  const int dynamic = which == 5 ? PROBE_SMEM : 0;
+  if (which == 5) {
+    cudaError_t err = cudaFuncSetAttribute(
+        lz4_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PROBE_SMEM);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, fns[which]);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
-  *shared_bytes = (int)a.sharedSizeBytes;
+  *shared_bytes = (int)a.sharedSizeBytes + dynamic;
   *threads = nthreads[which];
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fns[which],
-                                                            nthreads[which], 0);
+                                                            nthreads[which], dynamic);
 }
 
 int lz4_match_launch(const uint8_t* blocks, const int32_t* ns, const int32_t* so8,
@@ -937,6 +1094,29 @@ int lz4_emit_launch(const uint8_t* blocks, const int32_t* moff, const int32_t* g
   if (B > 0)
     lz4_emit_kernel<<<B * EMIT_CTAS_PER_BLOCK, EMIT_THREADS, 0, stream>>>(blocks, moff, geo,
                                                                         used, out);
+  return (int)cudaGetLastError();
+}
+
+// Refuse (cudaErrorInvalidValue, nothing launched) more blocks than their
+// flat grids can hold.
+int lz4_keys_launch(const uint8_t* blocks, int32_t* keys, int B, cudaStream_t stream) {
+  if (B < 0 || (long long)B * (BLOCK_WORDS / KEYS_THREADS) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (B > 0)
+    lz4_keys_kernel<<<B * (BLOCK_WORDS / KEYS_THREADS), KEYS_THREADS, 0, stream>>>(blocks, keys,
+                                                                                 B);
+  return (int)cudaGetLastError();
+}
+
+int lz4_probe_launch(const uint8_t* blocks, const int32_t* skeys, const int32_t* ns,
+                     int32_t* so, int B, cudaStream_t stream) {
+  if (B < 0 || (long long)B * PROBE_PLANES > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      lz4_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PROBE_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0)
+    lz4_probe_kernel<<<B * PROBE_PLANES, PROBE_THREADS, PROBE_SMEM, stream>>>(blocks, skeys, ns,
+                                                                             so, B);
   return (int)cudaGetLastError();
 }
 

@@ -4,10 +4,13 @@ The counterpart of tpu7z/ops/lz4_pallas.py, with the same contract:
 `encode_blocks(blocks, ns, W)` returns `(out (B, OUT_CAP) uint8,
 used (B,) int32)`, and block b's LZ4 bytes are `out[b, :used[b]]`.
 
-The path is the sorted-neighbour candidates, whose two row sorts run in
-the kernel of sort_cuda.py (csrc/sort.cu, the counterpart of the TPU's
-bitonic_sort), followed by four kernels from csrc/lz4_stages.cu:
+The path is the sorted-neighbour candidates, two kernels around one row
+sort of both tiers' keys (the kernel of sort_cuda.py, csrc/sort.cu, the
+counterpart of the TPU's bitonic_sort), followed by four kernels; all six
+are in csrc/lz4_stages.cu:
 
+  lz4_keys       both tiers' sort keys               (XLA's lax.sort tiers)
+  lz4_probe      the sorted neighbours, verified     (the same)
   lz4_match      words, tier-A window, run lengths   (TPU kernel a1)
   lz4_parse      lazy greedy parse                   (a2)
   lz4_geometry   sequence geometry and prefix sums   (a3)
@@ -16,11 +19,12 @@ bitonic_sort), followed by four kernels from csrc/lz4_stages.cu:
 Each stage has a wrapper here. On CPU tensors it runs the plain PyTorch
 version from lz4_plane.py; on CUDA tensors it launches its kernel, adds
 one to LAUNCHES[name], or raises. There is no fallback between the two.
-All four (the row kernels) move every plane as 16-byte lanes (lz4_parse
-stores its uint8 plane as 4-byte lanes), so their inputs and outputs must
-start on a 16-byte boundary. lz4_match, lz4_geometry and lz4_emit give
-each warp one 128-position row; lz4_parse gives each group of 4 lanes
-one, eight rows a warp.
+Every kernel moves its planes as 16-byte lanes (lz4_parse stores its
+uint8 plane as 4-byte lanes), so their inputs and outputs must start on
+a 16-byte boundary. lz4_match, lz4_geometry and lz4_emit give each warp
+one 128-position row; lz4_parse gives each group of 4 lanes one, eight
+rows a warp; lz4_keys gives each thread 4 positions; lz4_probe gives one
+CTA a block and a plane.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ from . import sort_cuda
 
 BLOCK = P.BLOCK
 OUT_CAP = P.OUT_CAP
-KERNELS = ("lz4_match", "lz4_parse", "lz4_geometry", "lz4_emit")
+KERNELS = ("lz4_match", "lz4_parse", "lz4_geometry", "lz4_emit", "lz4_keys",
+           "lz4_probe")
 
 # kernel launches made by the wrappers in this process, by kernel name
 LAUNCHES = {k: 0 for k in KERNELS}
@@ -48,6 +53,8 @@ _ARGTYPES = {
     "lz4_parse": [_P, _P, _I, _P],
     "lz4_geometry": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     "lz4_emit": [_P, _P, _P, _P, _P, _I, _P],
+    "lz4_keys": [_P, _P, _I, _P],
+    "lz4_probe": [_P, _P, _P, _P, _I, _P],
 }
 _lib = None
 
@@ -91,9 +98,9 @@ def _launch(name, *args):
 
 def kernel_info(name):
     """What the compiler and the current card make of an encoder kernel:
-    registers and local (spill) bytes a thread, static shared bytes and
-    threads a CTA, and resident CTAs per SM (lz4_match as the main path
-    launches it, W = 0)."""
+    registers and local (spill) bytes a thread, shared bytes (static, and
+    lz4_probe's dynamic) and threads a CTA, and resident CTAs per SM
+    (lz4_match as the main path launches it, W = 0)."""
     lib = _library()
     vals = [_I() for _ in range(5)]
     err = lib.lz4_kernel_info(KERNELS.index(name),
@@ -145,19 +152,18 @@ def _check_ns(ns, B, device):
         raise ValueError(f"ns: every length must lie in [0, {BLOCK}]")
 
 
-def _check_batch(blocks, ns):
+def _check_blocks(blocks):
     if not isinstance(blocks, torch.Tensor) or blocks.dim() != 2:
         raise ValueError("blocks: expected a (B, BLOCK) uint8 tensor")
     B = blocks.shape[0]
     _check(blocks, "blocks", torch.uint8, (B, BLOCK), blocks.device)
-    _check_ns(ns, B, blocks.device)
     return B, blocks.device
 
 
-def _sort_keys(key):
-    """The candidate keys hash16 << 16 | pos arrive in position order, so
-    the row sort's two passes over bits 16-31 give their full order."""
-    return sort_cuda.sort_rows(key, begin_bit=16)[0]
+def _check_batch(blocks, ns):
+    B, dev = _check_blocks(blocks)
+    _check_ns(ns, B, dev)
+    return B, dev
 
 
 def launch_bytes(name, B, W: int = P.W_DEFAULT):
@@ -166,10 +172,12 @@ def launch_bytes(name, B, W: int = P.W_DEFAULT):
     writes once. Planes a kernel reads only where the data asks are left
     out: lz4_match's blocks at W = 0, lz4_geometry's moff, lz4_emit's
     blocks, moff and every geometry plane but glen and kept. The spans
-    `lz4.match`, `lz4.parse`, `lz4.geometry` and `lz4.emit` carry it as
-    `bytes`, on the CPU path too."""
+    `lz4.keys`, `lz4.probe`, `lz4.match`, `lz4.parse`, `lz4.geometry` and
+    `lz4.emit` carry it as `bytes`, on the CPU path too."""
     N = BLOCK
     per_block = {
+        "lz4_keys": N + 2 * 4 * N,
+        "lz4_probe": N + 2 * 4 * N + 4 + 3 * 4 * N,
         "lz4_match": 4 + 3 * 4 * N + (N if W else 0) + 2 * 4 * N,
         "lz4_parse": 4 * N + N,
         "lz4_geometry": 4 * N + N + 4 + 4 * len(P.GEO_NAMES) * N + 2 * 4,
@@ -184,13 +192,47 @@ def _rows(t):
     return t.shape[0] if isinstance(t, torch.Tensor) and t.dim() == 2 else 0
 
 
+def candidate_keys(blocks):
+    """keys (2, B, BLOCK) int32, the raw bits of both tiers' uint32 sort
+    keys hash16 << 16 | pos (tier B, then tier B4). A span `lz4.keys`."""
+    with trace.span("lz4.keys", bytes=launch_bytes("lz4_keys", _rows(blocks))):
+        B, dev = _check_blocks(blocks)
+        if not _on_card(dev):
+            return P.candidate_keys(blocks)
+        _check_aligned(("blocks", blocks))
+        keys = torch.empty((2, B, BLOCK), dtype=torch.int32, device=dev)
+        _launch("lz4_keys", blocks, keys, B)
+        return keys
+
+
+def candidate_probe(blocks, skeys, ns):
+    """(so8, so4a, so4b) (B, BLOCK) int32 from the keys of candidate_keys,
+    each row sorted as uint32. ns is checked for its type and shape only:
+    the kernel writes each block's plane whole whatever its length. A span
+    `lz4.probe`."""
+    with trace.span("lz4.probe", bytes=launch_bytes("lz4_probe", _rows(blocks))):
+        B, dev = _check_blocks(blocks)
+        _check(skeys, "skeys", torch.int32, (2, B, BLOCK), dev)
+        _check(ns, "ns", torch.int32, (B,), dev)
+        if not _on_card(dev):
+            return P.candidate_probe(blocks, skeys, ns)
+        _check_aligned(("blocks", blocks), ("skeys", skeys))
+        so = torch.empty((3, B, BLOCK), dtype=torch.int32, device=dev)
+        _launch("lz4_probe", blocks, skeys, ns, so, B)
+        return so[0], so[1], so[2]
+
+
 def candidates(blocks, ns):
-    """Sorted-neighbour candidate planes (so8, so4a, so4b) on any device;
-    on the card each tier's sort is one launch of the row-sort kernel.
-    A span `lz4.candidates`."""
+    """Sorted-neighbour candidate planes (so8, so4a, so4b) on any device:
+    both tiers' keys, one row sort of their 2B rows (begin_bit 16: the
+    keys arrive in position order, so two passes over the hash give their
+    full order), the probes. On the card three launches. A span
+    `lz4.candidates`."""
     with trace.span("lz4.candidates"):
         _check_batch(blocks, ns)
-        return P.candidates(P.phase0_words(blocks), ns, sort=_sort_keys)
+        keys = candidate_keys(blocks)
+        skeys = sort_cuda.sort_rows(keys.view(-1, BLOCK), begin_bit=16)[0]
+        return candidate_probe(blocks, skeys.view(keys.shape), ns)
 
 
 def match_lengths(blocks, ns, so8, so4a, so4b, W: int = P.W_DEFAULT):

@@ -11,8 +11,10 @@ of the TPU's full-plane shift trees).
 Phases (the TPU kernel of each in brackets):
   0  u32 word at every position                          [a1]
   1  candidate offsets: tier A nearest-offset window     [a1]
-     and the sorted-neighbour tiers B and B4 (the sort is an argument:
-     `torch.sort` here, the row-sort kernel of sort_cuda.py on the card)
+     and the sorted-neighbour tiers B and B4: candidate_keys, one sort of
+     both tiers' rows (`torch.sort` here, the row-sort kernel of
+     sort_cuda.py on the card), candidate_probe [XLA's lax.sort tiers; on
+     the card the kernels lz4_keys and lz4_probe]
   2  match length = verified same-offset run, longest tier wins  [a1]
   3  lazy greedy parse, one cursor per 128-byte row      [a2]
   4  sequence geometry and the output prefix sums        [a3]
@@ -129,17 +131,23 @@ def tier_b4_key(words):
 
 
 def sort_keys(key):
-    """The plain sort: each row of unique keys ascending."""
-    return torch.sort(key, dim=1, stable=True).values
+    """The plain sort: each row of unique uint32 keys ascending, in the
+    key's own carrier (int32 raw bits, or int64 in [0, 2**32))."""
+    order = torch.sort(key.to(torch.int64) & _M32, dim=1).indices
+    return key.gather(1, order)
 
 
-def _sort_by_hash(key, words_list, sort):
-    """Sort positions by their unique key with `sort` (keys -> sorted
-    keys). Returns the sorted keys and each word plane gathered into that
-    order."""
-    skey = sort(key)
-    spos = skey & 0xFFFF
-    return skey, [w.gather(1, spos) for w in words_list]
+def _bits32(x):
+    """int64 values in [0, 2**32) as int32 tensors of the same bits."""
+    return ((x ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def candidate_keys(blocks):
+    """blocks (B, BLOCK) uint8 -> keys (2, B, BLOCK) int32, the raw bits
+    of the uint32 sort keys: keys[0] tier B (hash of 8 bytes), keys[1]
+    tier B4 (hash of 4 bytes). The plain version of the kernel lz4_keys."""
+    words = phase0_words(blocks)
+    return _bits32(torch.stack([tier_b_key(words), tier_b4_key(words)]))
 
 
 def _probe(skey, swords, k: int):
@@ -162,30 +170,31 @@ def _unsort(skey, vals, ns):
     return out.to(torch.int32)
 
 
-def tier_b_candidates(words, ns, sort=sort_keys):
-    """so8 (B, BLOCK) int32: offset to a previous position with the same
-    8 bytes, from the first verified of the K=2 sorted predecessors."""
-    skey, sw = _sort_by_hash(tier_b_key(words), [words, _next_word(words)],
-                             sort)
-    so8s = _probe(skey, sw, 1)
-    so8s = torch.where(so8s == 0, _probe(skey, sw, 2), so8s)
-    return _unsort(skey, so8s, ns)
+def candidate_probe(blocks, skeys, ns):
+    """(so8, so4a, so4b) (B, BLOCK) int32 from the sorted keys (2, B,
+    BLOCK), each row of candidate_keys ascending as uint32. Each sorted
+    entry's offset to the k-th entry before it (k = 1, 2) where the hash
+    and the carried bytes (8 for tier B, 4 for B4, zero past the block's
+    end) agree: so8 takes k = 1, else k = 2; so4a k = 1; so4b k = 2. Each
+    lands at the entry's own position, zero from ns - TAIL_GUARD on. The
+    plain version of the kernel lz4_probe."""
+    words = phase0_words(blocks)
+    sk = skeys.to(torch.int64) & _M32
+    kb, k4 = sk[0], sk[1]
+    sw8 = [w.gather(1, kb & 0xFFFF) for w in (words, _next_word(words))]
+    so8 = _probe(kb, sw8, 1)
+    so8 = torch.where(so8 == 0, _probe(kb, sw8, 2), so8)
+    sw4 = [words.gather(1, k4 & 0xFFFF)]
+    return (_unsort(kb, so8, ns), _unsort(k4, _probe(k4, sw4, 1), ns),
+            _unsort(k4, _probe(k4, sw4, 2), ns))
 
 
-def tier_b4_candidates(words, ns, sort=sort_keys):
-    """(so4a, so4b) (B, BLOCK) int32: offsets to the nearest and the
-    second-nearest sorted predecessor with the same 4 bytes, each kept on
-    its own."""
-    skey, sw = _sort_by_hash(tier_b4_key(words), [words], sort)
-    return (_unsort(skey, _probe(skey, sw, 1), ns),
-            _unsort(skey, _probe(skey, sw, 2), ns))
-
-
-def candidates(words, ns, sort=sort_keys):
-    """The sorted-neighbour planes (so8, so4a, so4b); `sort` sorts the
-    rows of a (B, BLOCK) key tensor."""
-    return (tier_b_candidates(words, ns, sort),) + tier_b4_candidates(
-        words, ns, sort)
+def candidates(blocks, ns):
+    """The sorted-neighbour planes (so8, so4a, so4b): both tiers' keys, one
+    sort over their 2B rows, the probes."""
+    keys = candidate_keys(blocks)
+    skeys = sort_keys(keys.view(-1, BLOCK)).view(keys.shape)
+    return candidate_probe(blocks, skeys, ns)
 
 
 def _tier_runs(so, kmin: int):
@@ -425,7 +434,7 @@ def encode_blocks_ref(blocks, ns, W: int):
     """The whole encoder in plain PyTorch. blocks (B, BLOCK) uint8, ns (B,)
     int32 valid lengths. Returns (out (B, OUT_CAP) uint8, used (B,) int32):
     block b's LZ4 bytes are out[b, :used[b]]."""
-    so8, so4a, so4b = candidates(phase0_words(blocks), ns)
+    so8, so4a, so4b = candidates(blocks, ns)
     mlen, moff = match_lengths_ref(blocks, ns, so8, so4a, so4b, W)
     geo = phase4_geometry(mlen, moff, phase3_parse(mlen), ns)
     return emit_ref(blocks, moff, geo)

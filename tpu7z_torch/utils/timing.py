@@ -106,8 +106,9 @@ def busy_share(trace_dir, window_name):
 def traced_encode(blocks, ns, W, workdir):
     """One `encode_blocks(blocks, ns, W)` on the card under `trace.profile`,
     the whole call annotated "encode_blocks"; each stage is a span of the
-    encoder's own (`lz4.candidates`, `lz4.match`, `lz4.parse`,
-    `lz4.geometry`, `lz4.emit`), so a region of the trace.
+    encoder's own (`lz4.candidates`, with `lz4.keys`, `sort.rows` and
+    `lz4.probe` inside it, `lz4.match`, `lz4.parse`, `lz4.geometry`,
+    `lz4.emit`), so a region of the trace.
     The trace goes to a directory made in `workdir` and removed after.
     Returns ((out, used), `busy_share` of the call with its "idle_share"
     and "segments_allocated", the device memory segments the caching
