@@ -5,7 +5,9 @@ block's first position (ops/hash_chain.py) and the tensor bit packer
 (ops/bitstream.py). Inputs are made from seeds: empty, 1 and 15 bytes,
 random bytes, zeros, a period-3 repeat, and the corpus past its sparse
 first 696156 bytes at 4 KiB, 131072 bytes and 300 KiB (three blocks,
-two joins). zlib reads every stream the port writes, and both packages
+two joins); at the block edges, 1, 15, 16 and 17 bytes, a block less
+one byte, a block, a block and one byte, and 4 MiB (32 blocks), whole
+streams and `compress_streams`' chunks. zlib reads every stream the port writes, and both packages
 read zlib's streams. tpu7z has no Deflate64 encoder, so the Deflate64
 streams are built here: a fixed-Huffman block whose matches use length
 symbol 285 with its 16 extra bits and distance codes 30 and 31.
@@ -93,6 +95,37 @@ def test_blocks_under_16_bytes_equal_tpu7z(corpus, block_size):
     got = tdef.compress(data, block_size=block_size, device="cpu")
     assert got == jdef.compress(data, block_size=block_size)
     assert zlib.decompress(got, -15) == data
+
+
+@pytest.fixture(scope="module")
+def tile():
+    """4 MiB of the corpus past its sparse chunk: 32 blocks."""
+    return make_corpus(TEXT + (4 << 20))[TEXT:]
+
+
+EDGES = [1, 15, 16, 17, tdef.BLOCK - 1, tdef.BLOCK, tdef.BLOCK + 1, 4 << 20]
+
+
+@pytest.mark.parametrize("n", EDGES)
+def test_block_edges_equal_tpu7z(tile, n):
+    """Inputs at the edges of the parse (16 bytes) and of a block: each
+    stream tpu7z's bytes, read back by zlib."""
+    data = tile[:n]
+    got = tdef.compress(data, device="cpu")
+    assert got == jdef.compress(data)
+    assert zlib.decompress(got, -15) == data
+
+
+@pytest.mark.parametrize("width,n", [(16, 16 * 5 + 1), (17, 17 * 4 + 15), (4096, 4096 * 3),
+                                     (tdef.BLOCK, tdef.BLOCK + 1), (32768, 5 * 32768 - 1)])
+def test_compress_streams_equal_tpu7z_per_chunk(tile, width, n):
+    """Every chunk its own stream, tpu7z's `compress` of that chunk, a
+    last chunk of one byte, 15 bytes, a full chunk and a chunk less one."""
+    data = tile[:n]
+    chunks = [data[off:off + width] for off in range(0, n, width)]
+    got = tdef.compress_streams(chunks, device="cpu")
+    assert got == [jdef.compress(c) for c in chunks]
+    assert [zlib.decompress(g, -15) for g in got] == chunks
 
 
 def test_level_is_ignored_as_in_tpu7z(corpus):

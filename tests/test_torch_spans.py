@@ -26,7 +26,8 @@ GZIP_READS = {"read.lz_valid": 1, "read.lz_chain_ends": 1, "read.lz_panel_rows":
               "read.deflate_bincount": 2, "read.deflate_hist": 1, "read.deflate_tokens": 1,
               "read.deflate_match_mask": 2, "read.bitstream_total": 1}
 GZIP_SPANS = ["entry.gzip", "entry.deflate", "entry.h2d", "deflate.parse", "lz.sort",
-              "sort.rows", "lz.match_lengths", "lz.walk", "deflate.header", "deflate.pack",
+              "sort.rows", "lz.match_lengths", "lz.walk", "deflate.header", "deflate.tables",
+              "deflate.pack",
               "entry.d2h", "entry.tobytes", "gzip.crc32", "read.lz_panel_pass", *GZIP_READS]
 
 
@@ -174,6 +175,24 @@ def test_gzip_reads_at_each_site(data):
     passes = reads.pop("read.lz_panel_pass")
     assert reads == GZIP_READS and passes >= 1
     assert [e["name"] for e in ev if e["parent"] is None] == ["entry.gzip"]
+
+
+@pytest.mark.parametrize("copies,blocks", [(1, 1), (3, 2), (4, 3)])
+def test_gzip_tables_once_a_call_inside_the_header(data, copies, blocks):
+    """One `deflate.tables` span a call, inside `deflate.header`, over
+    every block, and no read added by it."""
+    blob = data * copies
+    assert -(-len(blob) // codec.BLOCK) == blocks
+    ev = _events(lambda: codec.gzip_compress(blob, device="cpu"))
+    tables = [e for e in ev if e["name"] == "deflate.tables"]
+    assert len(tables) == 1 and tables[0]["blocks"] == blocks
+    assert tables[0]["parent"] == "deflate.header"
+    (header,) = [e for e in ev if e["name"] == "deflate.header"]
+    assert header["start"] <= tables[0]["start"] <= tables[0]["end"] <= header["end"]
+    assert trace.totals()["count"]["deflate.tables"] == 1
+    reads = collections.Counter(e["name"] for e in ev if e["name"].startswith("read."))
+    reads.pop("read.lz_panel_pass")
+    assert reads == GZIP_READS
 
 
 def test_lz4_launch_bytes_by_hand(data):

@@ -23,23 +23,26 @@ CPU):
                    follow one another without alignment, as tpu7z's one
                    `_LSBWriter` writes them
 
-On the host, per block: the code lengths (package-merge), the canonical
-codes and the header's fields (`_write_dynamic_header`, tpu7z's). The
-decoder is tpu7z's serial inflate on the host, with its error messages.
+On the host, every block in one call of the library built from
+csrc/deflate_tables.cpp (`_tables`): the code lengths (package-merge),
+the bit-reversed canonical codes and the header's fields, tpu7z's
+numbers. The decoder is tpu7z's serial inflate on the host, with its
+error messages.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from ...device import resolve_device
-from ...ops import hash_chain
+from ...ops import _build, hash_chain
 from ...ops.bitstream import BitWriterLSB, pack_bits_lsb_tensor
 from ...ops.hashing import crc32_native
 from ...utils import trace
 from ...utils.errors import CorruptError
-from ..zstd.huffman import _package_merge
 
 LENGTH_BASE = np.array(
     [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51,
@@ -103,15 +106,6 @@ def _rev_bits(v: int, n: int) -> int:
         r = (r << 1) | (v & 1)
         v >>= 1
     return r
-
-
-def _rev_codes(codes: np.ndarray, lens: np.ndarray) -> np.ndarray:
-    """`_rev_bits(codes[i], lens[i])` of every entry."""
-    out = np.zeros_like(codes)
-    for bit in range(int(lens.max())):
-        moved = ((codes >> bit) & 1) << np.maximum(lens - 1 - bit, 0)
-        out |= np.where(bit < lens, moved, 0)
-    return out
 
 
 def _canonical_codes(lengths: np.ndarray) -> np.ndarray:
@@ -260,85 +254,6 @@ def decompress(src: bytes, max_out: int | None = None,
 # Encoder
 # ---------------------------------------------------------------------------
 
-class _Fields:
-    """What a bit writer would write, as (value, nbits) fields."""
-
-    __slots__ = ("values", "nbits")
-
-    def __init__(self):
-        self.values = []
-        self.nbits = []
-
-    def write(self, value: int, bits: int):
-        self.values.append(value & ((1 << bits) - 1))
-        self.nbits.append(bits)
-
-
-def _lens_from_hist(hist: np.ndarray, size: int, max_bits: int) -> np.ndarray:
-    nz = np.nonzero(hist)[0]
-    lens = np.zeros(size, dtype=np.int64)
-    if nz.size == 1:
-        lens[nz[0]] = 1
-        return lens
-    lens[nz] = _package_merge(hist[nz], max_bits)
-    return lens
-
-
-def _write_dynamic_header(w, lit_lens, dist_lens):
-    hlit = 286
-    hdist = 30
-    all_len = np.concatenate([lit_lens, dist_lens])
-    # RLE of code lengths with 16/17/18
-    ops = []
-    i = 0
-    N = all_len.size
-    while i < N:
-        v = int(all_len[i])
-        j = i
-        while j < N and all_len[j] == v:
-            j += 1
-        run = j - i
-        if v == 0:
-            while run >= 11:
-                r = min(run, 138)
-                ops.append((18, r - 11, 7))
-                run -= r
-            while run >= 3:
-                r = min(run, 10)
-                ops.append((17, r - 3, 3))
-                run -= r
-            ops.extend([(0, None, None)] * run)
-        else:
-            ops.append((v, None, None))
-            run -= 1
-            while run >= 3:
-                r = min(run, 6)
-                ops.append((16, r - 3, 2))
-                run -= r
-            ops.extend([(v, None, None)] * run)
-        i = j
-    clc_hist = np.zeros(19, dtype=np.int64)
-    for sym, _arg, _bits in ops:
-        clc_hist[sym] += 1
-    clc_lens = _lens_from_hist(clc_hist, 19, 7)
-    clc_codes = _canonical_codes(clc_lens)
-    # hclen: trim trailing zeros in CLC order
-    order_lens = [int(clc_lens[CLC_ORDER[i]]) for i in range(19)]
-    hclen = 19
-    while hclen > 4 and order_lens[hclen - 1] == 0:
-        hclen -= 1
-    w.write(hlit - 257, 5)
-    w.write(hdist - 1, 5)
-    w.write(hclen - 4, 4)
-    for i in range(hclen):
-        w.write(order_lens[i], 3)
-    for sym, arg, bits in ops:
-        w.write(_rev_bits(int(clc_codes[sym]), int(clc_lens[sym])),
-                int(clc_lens[sym]))
-        if arg is not None:
-            w.write(arg, bits)
-
-
 def _find_matches(s, block_size: int):
     """(take, mlen, off) over the whole uint8 input `s`, each (n,): take[p]
     where the greedy walk of p's block takes the match at p, of length
@@ -355,27 +270,67 @@ def _codes(dev, table, values):
     return torch.from_numpy(table).to(dev)[values]
 
 
-def _block_tables(lit_hist, dist_hist, streams: bool = False):
-    """Per block, on the host: (lit_lens, dist_lens), each (blocks, 286)
-    and (blocks, 30), and the header fields of every block: tpu7z's
-    `_compress_block` up to the body. With `streams` every block is a
-    stream's last (BFINAL 1), else only the last block is."""
+_lib = None
+
+
+def _library():
+    """The host library built from csrc/deflate_tables.cpp (a failed build
+    raises)."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("deflate_tables")
+        lib.tz_deflate_tables.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                                           ctypes.c_int] + [ctypes.c_void_p] * 7)
+        lib.tz_deflate_tables.restype = ctypes.c_int64
+        lib.tz_deflate_lengths.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+        lib.tz_deflate_lengths.restype = ctypes.c_int
+        lib.tz_deflate_header_cap.argtypes = []
+        lib.tz_deflate_header_cap.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _int64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int64)
+
+
+def _tables(lit_hist, dist_hist, streams: bool = False):
+    """Every block's tables in one call of the host library: tpu7z's
+    `_compress_block` up to the body. `lit_hist` (blocks, 286) holds each
+    block's literal/length counts with EOB's (256) set to 1, `dist_hist`
+    (blocks, 30) its distance counts. Returns the code lengths lit_lens
+    (blocks, 286) and dist_lens (blocks, 30), their bit-reversed
+    canonical codes lit_codes and dist_codes (the same shapes), and the
+    header fields of every block in stream order: `heads`, their number
+    a block, and their values and widths `hvals`, `hbits`. With `streams`
+    every block is a stream's last (BFINAL 1), else only the last is."""
+    lit_hist, dist_hist = _int64(lit_hist), _int64(dist_hist)
     nb = lit_hist.shape[0]
-    lit_lens = np.zeros((nb, NLIT), dtype=np.int64)
-    dist_lens = np.zeros((nb, NDIST), dtype=np.int64)
-    headers = []
-    for b in range(nb):
-        lit_lens[b] = _lens_from_hist(lit_hist[b], NLIT, 15)
-        if dist_hist[b].sum() == 0:
-            dist_lens[b, 0] = 1
-        else:
-            dist_lens[b] = _lens_from_hist(np.maximum(dist_hist[b], 0), NDIST, 15)
-        w = _Fields()
-        w.write(1 if streams or b == nb - 1 else 0, 1)
-        w.write(2, 2)
-        _write_dynamic_header(w, lit_lens[b], dist_lens[b])
-        headers.append(w)
-    return lit_lens, dist_lens, headers
+    if lit_hist.shape != (nb, NLIT) or dist_hist.shape != (nb, NDIST):
+        raise ValueError(f"_tables: histograms must be (blocks, {NLIT}) and (blocks, {NDIST}), "
+                         f"got {lit_hist.shape} and {dist_hist.shape}")
+    lib = _library()
+    lit_lens, lit_codes = np.empty((2, nb, NLIT), dtype=np.int64)
+    dist_lens, dist_codes = np.empty((2, nb, NDIST), dtype=np.int64)
+    heads = np.empty(nb, dtype=np.int64)
+    hvals, hbits = np.empty((2, nb * lib.tz_deflate_header_cap()), dtype=np.int64)
+    total = lib.tz_deflate_tables(*(a.ctypes.data for a in (lit_hist, dist_hist)), nb,
+                                  int(streams), *(a.ctypes.data for a in (
+                                      lit_lens, dist_lens, lit_codes, dist_codes, heads,
+                                      hvals, hbits)))
+    return lit_lens, dist_lens, lit_codes, dist_codes, heads, hvals[:total], hbits[:total]
+
+
+def _code_lengths(hist, max_bits: int) -> np.ndarray:
+    """One alphabet's length-limited code lengths from its counts, by the
+    same library: tpu7z's `_lens_from_hist(hist, hist.size, max_bits)`
+    (at most 286 symbols, `max_bits` 1-15)."""
+    hist = _int64(hist)
+    lens = np.empty(hist.size, dtype=np.int64)
+    if _library().tz_deflate_lengths(hist.ctypes.data, hist.size, max_bits, lens.ctypes.data):
+        raise ValueError(f"_code_lengths: {hist.size} symbols at {max_bits} bits")
+    return lens
 
 
 def _encode(s, block_size: int, streams: bool = False):
@@ -414,21 +369,18 @@ def _encode(s, block_size: int, streams: bool = False):
             hist = torch.cat([lit_hist, dist_hist], 1).cpu().numpy()
         lit_hist, dist_hist = hist[:, :NLIT].copy(), hist[:, NLIT:]
         lit_hist[:, 256] = 1
-        lit_lens, dist_lens, headers = _block_tables(lit_hist, dist_hist, streams)
+        with trace.span("deflate.tables", blocks=nb):
+            lit_lens, dist_lens, lit_codes, dist_codes, heads, hvals, hbits = _tables(
+                lit_hist, dist_hist, streams)
     with trace.stage("deflate.pack", dev):
-        lit_codes = np.stack([_rev_codes(_canonical_codes(x), x) for x in lit_lens])
-        dist_codes = np.stack([_rev_codes(_canonical_codes(x), x) for x in dist_lens])
         # each block's fields: its header's, one a token (a literal or a
         # match, in stream order), its EOB (and with `streams` its pad); a
         # field's index is its rank among its kind plus its block's shift
         tokens = lit_hist[:, :256].sum(1) + lit_hist[:, 257:].sum(1)
-        heads = np.array([len(h.values) for h in headers], dtype=np.int64)
         tail = 2 if streams else 1
         seg = np.cumsum(heads + tokens + tail)
         seg_start = seg - (heads + tokens + tail)
         eob = seg_start + heads + tokens
-        hvals = np.concatenate([h.values for h in headers]).astype(np.int64)
-        hbits = np.concatenate([h.nbits for h in headers]).astype(np.int64)
         hidx = np.arange(hbits.size) + np.repeat(seg_start - (np.cumsum(heads) - heads), heads)
         values = torch.zeros(int(seg[-1]), dtype=torch.int64, device=dev)
         nbits = torch.zeros_like(values)
