@@ -19,19 +19,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      everywhere, a take only at position 127, matches that end at the row
      end, alternating 0/4, int32 extremes), with no spills and no shared
      memory, and refusing an mlen off a 16-byte boundary; the row-sort kernel against
-     its plain version, exactly, on random matcher keys with two payloads,
-     fully random unique keys (N = 16384 and 65536, 0 and 3 payloads),
-     ragged rows (N = 1000 and 12345), the corpus's tier-B and tier-B4
-     keys (int64, and both tiers' int32 keys as one set of rows, as the
+     its plain version, exactly, on its contract (int32 keys, no payload
+     or one int32 payload): random matcher keys with a payload, fully
+     random unique keys (N = 16384 and 65536, 0 and 1 payload), ragged
+     rows (N = 1000 and 12345), the corpus's tier-B and tier-B4 keys
+     (each tier alone, and both tiers' keys as one set of rows, as the
      path sorts them) and the match finder's keys (sentinels, short
      rows); and the
      tile-parallel design's edges: a short last tile (N = 1, 4095, 4096,
-     4097, 12345, 65535) as int32 and as int64 with NaN-pattern float32
-     payloads, every begin_bit (0, 8, 16, 24) with 0 and 3 payloads, an
-     all-zero block's tier-B4 keys (one digit in every pass), and 1 and
-     513 rows; rows longer than 65536 keys (N = 65537, 1 << 18, 1 << 22)
-     with duplicate keys and an int32 payload at every begin_bit, and the
-     match finder's keys for 4 MiB rows at hashlog 12, 20 and 31;
+     4097, 12345, 65535) without and with a payload of all-ones and
+     NaN-pattern bits, every begin_bit (0, 8, 16, 24) with 0 and 1
+     payload, an all-zero block's tier-B4 keys (one digit in every pass),
+     and 1 and 513 rows; rows longer than 65536 keys (N = 65537, 1 << 18,
+     1 << 22) with duplicate keys and an int32 payload at every
+     begin_bit, and the match finder's keys for 4 MiB rows at hashlog 12,
+     20 and 31;
   3. the main path: `shard_compress_lz4_device` over the 32 MiB corpus on
      the card, launch counts per kernel (each encoder kernel once, one
      row sort; one lz4_keys, sort_rows and lz4_probe an `encode_blocks`
@@ -72,14 +74,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      tpu7z_torch.cli a -tlz4 -mdev` on the first 2 MiB equal to
      `shard_compress_lz4_device`, and `t` on its archive; the native xxh32
      against the Python one (lengths 0-33, the first 2 MiB), both timed,
-     and the parts of `compress_frame_device(corpus)` (host clock); one
-     `encode_blocks` over the corpus traced by `trace.profile`, each stage
-     named by the encoder's `lz4.*` spans: the device's busy time and idle
-     share over the window;
-  7. the benchmark: `python3 bench_torch.py` in a process of its own (at
-     most 600 s); its result line is printed, and must name the metric,
-     read device_ratio 1.818 with every block verified, and name the card
-     and power limit of phase 1;
+     and the parts of `compress_frame_device(corpus)` (host clock);
+  (no phase 7: phases 8-15 keep the numbers the README and PERF.md cite);
   8. zstd: the host tier (csrc/zstd_enc.cpp, zstd_dec.cpp) over the corpus
      at levels 3 and 5, one call and the job model at 4 workers (the
      frame equal to 1 worker's and to `frame.compress(threads=4)`), every
@@ -182,9 +178,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      streaming the corpus's .lz4, .zst, .gz, .bz2 and .xz, `a -v8m` and
      `x` of the `.001`, `-i!`, `-x!` and `-bb`. Each step prints its
      seconds (host clock), bytes and row sorts.
-The timing helpers are tpu7z_torch/utils/timing.py's, shared with
-bench_torch.py. The line before the last is the per-kernel JSON; the last
-line is the device JSON. Imports nothing of JAX or tpu7z.
+The timing helpers (`card`, `sample_ms`, `timed`, `timed_launches`)
+are this script's own. The line before the last is the per-kernel JSON;
+the last line is the device JSON. Imports nothing of JAX or tpu7z.
 """
 
 from __future__ import annotations
@@ -204,7 +200,6 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-BENCH_TIMEOUT_S = 600
 SOURCE = "tpu7z_torch/csrc/lz4_stages.cu"
 SORT_SOURCE = "tpu7z_torch/csrc/sort.cu"
 REPLACES = {
@@ -222,6 +217,54 @@ TEXT = 696156                 # the corpus's first byte past its sparse chunk
 
 def log(msg):
     print(msg, flush=True)
+
+
+def card():
+    """(name, power limit) of the first card, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    name, power = out.splitlines()[0].rsplit(",", 1)
+    return name.strip(), power.strip()
+
+
+def sample_ms(fn, reps=5, launches=1, device="cuda"):
+    """`reps` samples, in milliseconds, of one call of `fn` after one
+    warm-up call; each sample the mean over `launches` calls back to back.
+    CUDA events on a CUDA device, the host clock on any other."""
+    fn()
+    if torch.device(device).type != "cuda":
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            for _ in range(launches):
+                fn()
+            times.append((time.perf_counter() - t) * 1e3 / launches)
+        return times
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return times
+
+
+def timed(fn, reps=5):
+    """Median milliseconds of `fn` on the card, after one warm-up run."""
+    return statistics.median(sample_ms(fn, reps))
+
+
+def timed_launches(fn, launches=10, reps=5):
+    """Median milliseconds of one call of `fn` on the card, from events
+    around `launches` calls back to back, after one warm-up call."""
+    return statistics.median(sample_ms(fn, reps, launches))
 
 
 def patterns(block):
@@ -433,8 +476,6 @@ def copy_rates(dev, nbytes=32 << 20):
     asynchronous, pageable ones as `.to` and `.cpu()` make them), and the
     host's own copy of the same bytes into pinned memory and out of it as
     `bytes` (host clock). {name: (ms, GB/s)}, each also logged."""
-    from tpu7z_torch.utils.timing import sample_ms, timed_launches
-
     src = np.random.default_rng(0).integers(0, 256, nbytes, np.uint8)
     onto = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
@@ -519,7 +560,6 @@ def zstd_phase(corpus, dev, S, M, card_label):
     from tpu7z_torch.ops import hash_chain as HC
     from tpu7z_torch.parallel import decode as PD
     from tpu7z_torch.parallel import zstd_jobs as ZJ
-    from tpu7z_torch.utils.timing import timed, timed_launches
 
     mb = len(corpus) / 1e6
 
@@ -652,7 +692,6 @@ def lz_phase(corpus, dev, S, M, card_label):
     from tpu7z_torch.ops import hash_chain as HC
     from tpu7z_torch.ops.hashing import crc32, crc32_native, crc64, crc64_native
     from tpu7z_torch.parallel import decode as PD
-    from tpu7z_torch.utils.timing import timed, timed_launches
 
     mb = len(corpus) / 1e6
     raw2 = [{"id": stdlzma.FILTER_LZMA2, "dict_size": 1 << 24}]
@@ -857,7 +896,6 @@ def sevenzip_phase(corpus, dev, S, card_label, zstd_frame):
     numbers for the log and the kernels line."""
     from tpu7z_torch.containers.sevenzip import SevenZipReader, aes7z, write_archive
     from tpu7z_torch.ops import _build
-    from tpu7z_torch.utils.timing import timed
 
     password = "chip smoke"
     out = {}
@@ -989,8 +1027,6 @@ def sort_shape(S, key, payloads, bb, what, card_label, time_it=True):
     with `time_it`, its time through the wrapper and as its launches alone,
     the plain version's, `torch.sort`'s (int64, stable) and the bound (each
     operand read once and written once at 3.35 TB/s)."""
-    from tpu7z_torch.utils.timing import timed, timed_launches
-
     got = S.sort_rows(key, *payloads, begin_bit=bb)
     want = S.sort_rows_ref(key, *payloads, begin_bit=bb)
     err = max_abs_err([bits64(g) for g in got], [bits64(w) for w in want])
@@ -1477,7 +1513,6 @@ def ppmd_hash_phase(corpus, dev, S, card_label):
     from tpu7z_torch.containers.sevenzip import SevenZipReader, write_archive
     from tpu7z_torch.ops import _build
     from tpu7z_torch.ops import hashers as H
-    from tpu7z_torch.utils.timing import timed
 
     mib = 1 << 20
     head = corpus[:mib]
@@ -2133,7 +2168,6 @@ def aes_passes(corpus, key, iv, dev, card_label):
     over 16 MiB (one pass) and over 32 MiB (two) differ by the extra
     output alone, since the temporaries are a pass's."""
     from tpu7z_torch.containers.sevenzip import aes7z
-    from tpu7z_torch.utils.timing import timed
 
     chunk_bytes = aes7z.CHUNK_BLOCKS * 16
     if len(corpus) != 2 * chunk_bytes:
@@ -2233,38 +2267,40 @@ def filter_checks(dev, card_label):
     return {"bytes": n, "ip": ip, "seconds": times, "folders_read_s": t_read}
 
 
-def sort_inputs(dev, corpus_blocks, corpus_ns, P, M):
-    """(name, key, payloads, begin_bit) cases for the row sort: random
-    matcher keys (hash16 << 16 | pos) with a uint32 and an int32 payload;
-    fully random unique keys with 0 and 3 payloads; ragged rows; the
-    corpus's tier-B and tier-B4 keys; the match finder's keys over the
-    corpus with some rows cut short (sentinel tails), at hashlog 16 and
-    12; the edges of the tile-parallel design; rows over 65536 keys with
-    duplicate keys and a position payload; the match finder's keys for
-    the corpus as 8 rows of 4 MiB at hashlog 12, 20 and 31."""
+def sort_inputs(dev, corpus_blocks, corpus_ns, P, M, S):
+    """(name, key, payloads, begin_bit) cases for the row sort, all int32
+    keys with no payload or one int32 payload: random matcher keys
+    (hash16 << 16 | pos) with a payload; fully random unique keys with 0
+    and 1 payload; ragged rows; the corpus's tier-B and tier-B4 keys; the
+    match finder's keys over the corpus with some rows cut short
+    (sentinel tails), at hashlog 16 and 12; the edges of the
+    tile-parallel design; rows over 65536 keys with duplicate keys and a
+    position payload; the match finder's keys for the corpus as 8 rows of
+    4 MiB at hashlog 12, 20 and 31."""
     rng = np.random.default_rng(11)
     B, N = 64, P.BLOCK
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+
     h = rng.integers(0, 1 << 16, (B, N), dtype=np.uint32)
-    probe = torch.from_numpy((h << 16) | np.arange(N, dtype=np.uint32)).to(dev)
-    pu = torch.from_numpy(rng.integers(0, 1 << 32, (B, N), dtype=np.uint32)).to(dev)
-    pi = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (B, N), dtype=np.int32)).to(dev)
-    cases = [("probe_2pay", probe, (pu, pi), 0), ("probe_2pay", probe, (pu, pi), 16)]
+    probe = i32((h << 16) | np.arange(N, dtype=np.uint32))
+    pi = i32(rng.integers(0, 1 << 32, (B, N), dtype=np.uint32))
+    cases = [("probe_pay", probe, (pi,), 0), ("probe_pay", probe, (pi,), 16)]
     for n in (16384, 65536):
         c = rng.integers(0, 1 << 32, (B, 1), dtype=np.uint64)
         k = (np.arange(n, dtype=np.uint64) * ODD + c) % (1 << 32)
-        key = torch.from_numpy(rng.permuted(k, axis=1).astype(np.uint32).view(np.int32)).to(dev)
-        pays = tuple(torch.from_numpy(rng.integers(0, 1 << 32, (B, n), dtype=np.uint32)
-                                      .view(dt)).to(dev)
-                     for dt in (np.int32, np.uint32, np.float32))
-        cases += [(f"random_{n}", key, (), 0), (f"random_{n}_3pay", key, pays, 0)]
+        key = i32(rng.permuted(k, axis=1).astype(np.uint32))
+        pay = i32(rng.integers(0, 1 << 32, (B, n), dtype=np.uint32))
+        cases += [(f"random_{n}", key, (), 0), (f"random_{n}_pay", key, (pay,), 0)]
     # rows that end inside a tile and inside a warp's step
     for n, bb in ((1000, 0), (12345, 8)):
-        key = torch.from_numpy(rng.integers(0, 1 << 32, (3, n), dtype=np.uint32)).to(dev)
-        pays = tuple(torch.from_numpy(rng.integers(0, 1 << 31, (3, n), dtype=np.int32)).to(dev)
-                     for _ in range(3))
-        cases.append((f"ragged_{n}_3pay", key, pays, bb))
+        key = i32(rng.integers(0, 1 << 32, (3, n), dtype=np.uint32))
+        pay = i32(rng.integers(0, 1 << 32, (3, n), dtype=np.uint32))
+        cases.append((f"ragged_{n}_pay", key, (pay,), bb))
     words = P.phase0_words(corpus_blocks)
     for name, key in (("tier_b", P.tier_b_key(words)), ("tier_b4", P.tier_b4_key(words))):
+        key = S.raw_bits(key)
         cases += [(name, key, (), 16), (name, key, (), 0)]
     # the main path's sort: both tiers' int32 keys as one set of 2B rows
     cases.append(("both_tiers_int32", P.candidate_keys(corpus_blocks).view(-1, P.BLOCK), (), 16))
@@ -2277,58 +2313,52 @@ def sort_inputs(dev, corpus_blocks, corpus_ns, P, M):
         cases += [(f"find_matches_h{hashlog}", key, (pos.contiguous(),), bb)]
 
     # the tile-parallel design's edges: a short last tile and rows shorter
-    # than a tile, as int32 (keys >= 2**31 read negative) and as int64;
-    # float32 payloads whose bits include NaN patterns, moved untouched
+    # than a tile (keys >= 2**31 read negative), without a payload at
+    # begin_bit 0 and with one at 16 whose bits include all-ones and NaN
+    # patterns, moved untouched
     def unique(rows, n):
         c = rng.integers(0, 1 << 32, (rows, 1), dtype=np.uint64)
         k = (np.arange(n, dtype=np.uint64) * ODD + c) % (1 << 32)
         return rng.permuted(k, axis=1).astype(np.uint32)
 
-    def nan_floats(rows, n):
+    def nan_bits(rows, n):
         bits = rng.integers(0, 1 << 32, (rows, n), dtype=np.uint32)
         nans = np.array([0x7FC00000, 0xFFC00001, 0x7F800001, 0xFFFFFFFF], np.uint32)
         bits[:, ::3] = nans[rng.integers(0, 4, bits[:, ::3].shape)]
-        return torch.from_numpy(bits.view(np.float32)).to(dev)
+        return i32(bits)
 
     for n in (1, 4095, 4096, 4097, 12345, 65535):
         u = unique(3, n)
         if n > 1 and not (u >= 1 << 31).any():
             raise AssertionError("no key >= 2**31")
-        k32 = torch.from_numpy(u.view(np.int32)).to(dev)
-        k64 = torch.from_numpy(u.astype(np.int64)).to(dev)
-        cases += [(f"ragged_{n}_int32", k32, (), 0),
-                  (f"ragged_{n}_int64_nan_pay", k64, (nan_floats(3, n),), 16)]
+        k32 = i32(u)
+        cases += [(f"ragged_{n}", k32, (), 0), (f"ragged_{n}_nan_pay", k32, (nan_bits(3, n),), 16)]
     # every begin_bit, so every parity of the ping-pong lands in out
-    u = unique(4, 20000)
-    k64 = torch.from_numpy(u.astype(np.int64)).to(dev)
-    k32 = torch.from_numpy(u.view(np.int32)).to(dev)
-    pays = (nan_floats(4, 20000), k32, torch.from_numpy(unique(4, 20000)).to(dev))
+    k32 = i32(unique(4, 20000))
+    pay = nan_bits(4, 20000)
     for bb in (0, 8, 16, 24):
-        cases += [("random_20000_int64_3pay", k64, pays, bb),
-                  ("random_20000_int32", k32, (), bb)]
+        cases += [("random_20000_pay", k32, (pay,), bb), ("random_20000", k32, (), bb)]
     # skewed digits: an all-zero block's tier-B4 keys share one hash, so a
     # row's 65536 keys (16 tiles of 4096) have one digit in each pass
     zero_words = P.phase0_words(torch.zeros((2, P.BLOCK), dtype=torch.uint8, device=dev))
     zkey = P.tier_b4_key(zero_words)
     if not bool((zkey >> 16 == zkey[0, 0] >> 16).all()):
         raise AssertionError("an all-zero block's tier-B4 keys differ in their hash")
+    zkey = S.raw_bits(zkey)
     cases += [("zero_block_tier_b4", zkey, (), 16), ("zero_block_tier_b4", zkey, (), 0)]
     # grid edges: one row, and one row more than the corpus
-    tb = P.tier_b_key(words)
+    tb = S.raw_bits(P.tier_b_key(words))
     cases += [("tier_b_1_row", tb[:1].contiguous(), (), 16),
               ("tier_b_513_rows", torch.cat([tb, tb[:1]]), (), 16)]
     # rows over 65536 keys (17, 64 and 1024 tiles) of duplicate keys (each
     # row draws from 512 values): the position payload must keep its input
-    # order among equal keys; int32 keys at begin_bit 0 and 16, int64 at 8
-    # and 24
+    # order among equal keys, at every begin_bit
     for n, rows in ((65537, 3), (1 << 18, 2), (1 << 22, 2)):
         vals = rng.integers(0, 1 << 32, (rows, 512), dtype=np.uint32)
-        dup = np.take_along_axis(vals, rng.integers(0, 512, (rows, n)), 1)
-        k32 = torch.from_numpy(dup.view(np.int32)).to(dev)
-        k64 = torch.from_numpy(dup.astype(np.int64)).to(dev)
+        k32 = i32(np.take_along_axis(vals, rng.integers(0, 512, (rows, n)), 1))
         pos = torch.arange(n, dtype=torch.int32, device=dev).expand(rows, n).contiguous()
         for bb in (0, 8, 16, 24):
-            cases.append((f"dup_{n}_pos", k32 if bb % 16 == 0 else k64, (pos,), bb))
+            cases.append((f"dup_{n}_pos", k32, (pos,), bb))
     # the match finder's keys for 4 MiB rows, one with a sentinel tail
     big, big_n = rows_of_4mib(corpus_blocks)
     big_n[-1] -= 12345
@@ -2368,11 +2398,10 @@ def sort_kernel_times(S, key):
     the bytes each kernel must move for these keys (count reads the keys,
     scatter reads and writes them, scan reads and writes the count
     table). Empty where the trace shows no device time."""
-    names = {"count_kernel<unsigned int>": "count_u32", "scan_kernel": "scan",
-             "scatter_kernel<0, unsigned int, unsigned int>": "scatter_u32_u32"}
+    names = {"count_kernel": "count", "scan_kernel": "scan", "scatter_kernel<0>": "scatter_0pay"}
     outs, scratch = S.buffers(key, (), 16)
     n = key.numel()
-    moved = {"count_u32": 4 * n, "scatter_u32_u32": 8 * n, "scan": 2 * 4 * scratch[1].numel()}
+    moved = {"count": 4 * n, "scatter_0pay": 8 * n, "scan": 2 * 4 * scratch[1].numel()}
     times = {}
     for full, (count, ms) in profile_kernels(lambda: S._launch(key, (), outs, scratch, 16)).items():
         name = next((v for k, v in names.items() if k in full), None)
@@ -2382,11 +2411,9 @@ def sort_kernel_times(S, key):
 
 
 def bits64(t):
-    """The 32-bit pattern of each element as int64 (int64 tensors as they
-    are), so any carrier dtype compares and subtracts."""
-    if t.dtype == torch.int64:
-        return t
-    return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    """The 32-bit pattern of each int32 element as int64, so that keys
+    >= 2**31 compare and subtract as unsigned."""
+    return t.to(torch.int64) & 0xFFFFFFFF
 
 
 def max_abs_err(got, want):
@@ -2416,7 +2443,6 @@ def main() -> int:
     from tpu7z_torch.parallel import distributed, progress, sharded
     from tpu7z_torch.utils.corpus import CORPUS_RATIO, CORPUS_SHA256, make_corpus
     from tpu7z_torch.utils.parse_planes import parse_planes
-    from tpu7z_torch.utils.timing import card, timed, timed_launches, traced_encode
 
     dev = resolve_device()
     t_start = time.time()
@@ -2501,7 +2527,7 @@ def main() -> int:
             raise AssertionError(f"{k} was never launched in the checks")
 
     errs["sort_rows"] = 0
-    for name, key, pays, bb in sort_inputs(dev, cb, cn, P, M):
+    for name, key, pays, bb in sort_inputs(dev, cb, cn, P, M, S):
         got = S.sort_rows(key, *pays, begin_bit=bb)
         torch.cuda.synchronize()
         want = S.sort_rows_ref(key, *pays, begin_bit=bb)
@@ -2734,8 +2760,7 @@ def main() -> int:
                     "max_abs_err": errs["sort_rows"], "equal": errs["sort_rows"] == 0,
                     **sort_row["tiers"], "bound_by": "bytes", "kernels": sort_info})
 
-    # 6. past one device: a process group, the CLI, the native xxh32 and the
-    # profiler hooks
+    # 6. past one device: a process group, the CLI and the native xxh32
     import torch.distributed as dist
     distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0)
     group = distributed.global_mesh()
@@ -2832,39 +2857,6 @@ def main() -> int:
         f"its parts: device match finding with copies {t_dev:.3f} s, host emission "
         f"{t_emit:.3f} s, xxh32_native {t_xxh:.4f} s")
 
-    want_out, want_used = K.encode_blocks(cb, cn, 0)
-    (out_t, used_t), share, t_traced = traced_encode(cb, cn, 0, _build.BUILD)
-    if not (torch.equal(out_t, want_out) and torch.equal(used_t, want_used)):
-        raise AssertionError("the traced encoder's output differs from encode_blocks'")
-    log(f"traced encode_blocks (32 MiB, W=0; host clock with the profiler {t_traced:.3f} s): "
-        f"annotated window {share['window_ms']:.3f} ms, device busy {share['busy_ms']:.3f} ms "
-        f"({share['kernels']} kernels), idle share {share['idle_share']:.4f}; stages on the "
-        f"device (ms): "
-        f"{ {k: round(v, 3) for k, v in share['device_spans_ms'].items() if k.startswith('lz4.')} }; "
-        f"longest idle gaps (start, ms) {share['idle_gaps_ms']}; "
-        f"{share['segments_allocated']} device segments allocated in it")
-    del out_t, used_t, want_out, want_used
-
-    # 7. the benchmark, bench_torch.py, in a process of its own
-    torch.cuda.empty_cache()
-    t = time.time()
-    r = subprocess.run([sys.executable, str(root / "bench_torch.py")], cwd=root,
-                       env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True,
-                       text=True, timeout=BENCH_TIMEOUT_S)
-    if r.returncode != 0 or not r.stdout.strip():
-        raise AssertionError(f"bench_torch.py exit {r.returncode}:\n{r.stderr[-4000:]}")
-    bench = json.loads(r.stdout.strip().splitlines()[-1])
-    log(f"bench_torch.py in {time.time() - t:.1f} s (host clock):")
-    log(json.dumps(bench))
-    d = bench["detail"]
-    if bench["metric"] != "lz4_encode_MBps_per_chip" or d["device_ratio"] != CORPUS_RATIO:
-        raise AssertionError(f"bench_torch.py: metric {bench['metric']}, device_ratio "
-                             f"{d['device_ratio']}, expected {CORPUS_RATIO}")
-    if d["verified"] != f"all {cb.shape[0]} blocks bit-exact round-trip":
-        raise AssertionError(f"bench_torch.py verified {d['verified']!r}")
-    if (d["device"], d["power_limit_W"]) != (card_name, float(power_limit.split()[0])):
-        raise AssertionError(f"bench_torch.py ran on {d['device']} at {d['power_limit_W']} W, "
-                             f"phase 1 on {card_name}, {power_limit}")
     # 8. zstd: the host tier, the tensor parse and the tensor encoder
     zstd = zstd_phase(corpus, dev, S, M, f"{card_name}, {power_limit}")
     sort_entry = next(k for k in kernels if k["name"] == "sort_rows")

@@ -164,8 +164,8 @@ def test_bwt_tie_break_of_periodic_blocks_equals_tpu7z(data):
 
 
 def test_packed_key_is_cut_so_two_passes_sort(corpus):
-    """sort_rows reads an int64 key as its low 32 bits: a packed
-    (rank << 20 | key2) key of ranks at or above 2**12 sorts wrong, which
+    """sort_rows takes 32-bit keys: a packed (rank << 20 | key2) key of
+    ranks at or above 2**12, cut to its low 32 bits, sorts wrong, which
     is why bwt_forward sorts in two stable passes, and those give
     np.lexsort's order."""
     rng = np.random.default_rng(5)
@@ -175,7 +175,7 @@ def test_packed_key_is_cut_so_two_passes_sort(corpus):
     want = np.lexsort((key2, rank))
     packed = torch.from_numpy((rank << 20) | key2)[None]
     idx = torch.arange(n, dtype=torch.int32)[None]
-    _, cut = sort_cuda.sort_rows(packed, idx)
+    _, cut = sort_cuda.sort_rows(sort_cuda.raw_bits(packed), idx)
     assert not np.array_equal(cut[0].numpy(), want)
     got = tbwt._lexsort2(torch.from_numpy(rank), torch.from_numpy(key2), 20)
     assert np.array_equal(got.numpy(), want)

@@ -204,7 +204,7 @@ def test_descriptor_bits_as_in_tpu7z(bits, ok):
 
 def _port_sources():
     files = sorted((REPO / "tpu7z_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
+    return files + [REPO / "chip_smoke.py"]
 
 
 def test_port_imports_neither_jax_nor_tpu7z():
@@ -232,12 +232,12 @@ def test_importing_the_port_loads_no_jax():
             "tpu7z_torch.models.lz4.torch_backend, tpu7z_torch.entry, "
             "tpu7z_torch.parallel.distributed, tpu7z_torch.parallel.progress, "
             "tpu7z_torch.cli.main, tpu7z_torch.utils.trace, "
-            "tpu7z_torch.utils.timing, tpu7z_torch.utils.errors, "
+            "tpu7z_torch.utils.errors, "
             "tpu7z_torch.ops.hash_chain, tpu7z_torch.ops.bitstream, "
             "tpu7z_torch.ops.bitchain, tpu7z_torch.ops.hashing, "
             "tpu7z_torch.models.zstd.frame, tpu7z_torch.models.zstd.compressor, "
             "tpu7z_torch.models.zstd.native, tpu7z_torch.parallel.zstd_jobs, "
-            "tpu7z_torch.parallel.decode, bench_torch, chip_smoke; "
+            "tpu7z_torch.parallel.decode, chip_smoke; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'tpu7z')); "
             "print(bad); sys.exit(1 if bad else 0)")

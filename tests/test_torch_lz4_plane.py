@@ -335,6 +335,51 @@ def test_encoder_matches_pallas_interpret(batch):
                               out[b, :u].numpy())
 
 
+CORPUS_BLOCKS = 16   # the corpus's first 1 MiB
+
+
+@pytest.fixture(scope="module")
+def corpus_mib():
+    """The corpus's first 1 MiB as 16 full blocks, encoded at W = 0 by the
+    port (`encode_blocks`, its plain version on the CPU) and by tpu7z's
+    plane encoder mapped over the blocks, as bench.py's CPU child encodes
+    them: (data, (out, used) of the port, (out, used) of tpu7z)."""
+    N = P.BLOCK
+    data = make_corpus(32 << 20)[:CORPUS_BLOCKS * N]
+    blocks = np.frombuffer(data, np.uint8).reshape(CORPUS_BLOCKS, N)
+    out, used = lz4_cuda.encode_blocks(torch.from_numpy(blocks.copy()),
+                                       torch.full((CORPUS_BLOCKS,), N, dtype=torch.int32), 0)
+    planes = jnp.asarray(blocks).reshape(CORPUS_BLOCKS, JP.NROWS, JP.ROW).astype(jnp.int32)
+
+    @jax.jit
+    def encode(planes, ns):
+        outs, useds = jax.lax.map(lambda a: JP.encode_block_planes(a[0], a[1], W=0),
+                                  (planes, ns))
+        return outs.reshape(CORPUS_BLOCKS, -1), useds
+
+    jout, jused = encode(planes, jnp.full((CORPUS_BLOCKS,), N, jnp.int32))
+    return data, (out.numpy(), used.numpy()), (np.asarray(jout), np.asarray(jused))
+
+
+@pytest.mark.parametrize("b", range(CORPUS_BLOCKS))
+def test_encode_blocks_equals_tpu7z_on_the_corpus(b, corpus_mib):
+    _, (out, used), (jout, jused) = corpus_mib
+    u = int(used[b])
+    assert u == int(jused[b])
+    assert np.array_equal(out[b, :u], jout[b, :u].astype(np.uint8))
+
+
+def test_corpus_ratio_equals_bench_py_formula_on_tpu7z(corpus_mib):
+    """bench.py's ratio over the same 16 blocks: comp_total = sum(min(used,
+    N + 4)), each block at most its stored size and its 4-byte size word;
+    the port's and tpu7z's agree, and the corpus compresses."""
+    data, (_, used), (_, jused) = corpus_mib
+    comp_total, jcomp_total = (int(np.minimum(u.astype(np.int64), P.BLOCK + 4).sum())
+                               for u in (used, jused))
+    assert comp_total == jcomp_total < len(data)
+    assert round(len(data) / comp_total, 3) == round(len(data) / jcomp_total, 3) > 1
+
+
 def test_encoder_config_matches_tpu7z():
     cfg = P.encoder_config()
     assert cfg == {k: getattr(JP, k) for k in cfg}

@@ -3,8 +3,11 @@ package's bitonic sort and numpy's stable argsort.
 
 On CPU tensors `sort_rows` runs its plain version, `sort_rows_ref`; the
 CUDA kernel behind it is held against that plain version on the card by
-chip_smoke.py. Keys and payloads are integers or raw bits, so the
-tolerance is exact equality.
+chip_smoke.py. Its contract is what its two callers pass: int32 keys
+(the raw bits of uint32) with no payload or one int32 payload, as
+`lz4_cuda.candidates` (no payload, begin_bit 16) and `match.sort_order`
+(the position as payload) call it. Keys and payloads are integers, so
+the tolerance is exact equality.
 """
 
 import numpy as np
@@ -50,66 +53,63 @@ def _random_unique_keys(B, N, seed=5):
     return np.stack(rows)
 
 
-def _as(keys_u32, dtype):
-    t = torch.from_numpy(keys_u32)
-    if dtype == torch.int64:
-        return t.to(torch.int64)
-    return t.view(dtype)
+def _i32(keys_u32):
+    """uint32 keys as the int32 tensor of their raw bits."""
+    return torch.from_numpy(np.ascontiguousarray(keys_u32).view(np.int32))
 
 
 def _u32(t):
-    """Sorted keys back as numpy uint32, whatever their carrier dtype."""
-    if t.dtype == torch.int64:
-        return t.numpy().astype(np.uint32)
-    return t.view(torch.int32).numpy().view(np.uint32)
+    """Sorted int32 keys back as numpy uint32."""
+    return t.numpy().view(np.uint32)
 
 
 def test_sort_rows_equals_bitonic_sort_interpret():
     key = _matcher_keys(1, 65536)
-    rng = np.random.default_rng(12)
-    pu = rng.integers(0, 1 << 32, key.shape, dtype=np.uint32)
-    pi = rng.integers(-(1 << 31), 1 << 31, key.shape, dtype=np.int32)
-    jk, jpu, jpi = (np.asarray(x) for x in bitonic_sort(
-        jnp.asarray(key), jnp.asarray(pu), jnp.asarray(pi), interpret=True))
-    tk, tpu, tpi = sort_cuda.sort_rows(torch.from_numpy(key),
-                                       torch.from_numpy(pu),
-                                       torch.from_numpy(pi))
-    assert (tk.dtype, tpu.dtype, tpi.dtype) == (torch.uint32, torch.uint32,
-                                                torch.int32)
+    pi = np.random.default_rng(12).integers(-(1 << 31), 1 << 31, key.shape, dtype=np.int32)
+    jk, jpi = (np.asarray(x) for x in bitonic_sort(jnp.asarray(key), jnp.asarray(pi),
+                                                   interpret=True))
+    tk, tpi = sort_cuda.sort_rows(_i32(key), torch.from_numpy(pi))
+    assert (tk.dtype, tpi.dtype) == (torch.int32, torch.int32)
     assert np.array_equal(_u32(tk), jk)
-    assert np.array_equal(_u32(tpu), jpu)
     assert np.array_equal(tpi.numpy(), jpi)
     order = np.argsort(key, axis=1, kind="stable")
     assert np.array_equal(jk, np.take_along_axis(key, order, 1))
 
 
-PAYLOAD_SETS = {"none": (), "one_int32": (torch.int32,),
-                "three": (torch.int32, torch.uint32, torch.float32)}
+# no payload, as the LZ4 candidate stage sorts; the position, as
+# match.sort_order sorts
+PAYLOADS = ["none", "position"]
 
 
-@pytest.mark.parametrize("pays", PAYLOAD_SETS.values(), ids=PAYLOAD_SETS.keys())
-@pytest.mark.parametrize("key_dtype", [torch.int32, torch.uint32, torch.int64],
-                         ids=["int32", "uint32", "int64"])
+def _payloads(kind, shape):
+    if kind == "none":
+        return ()
+    return (torch.arange(shape[0] * shape[1], dtype=torch.int32).view(shape),)
+
+
+def _check_sorted(key_u32, begin_bit, pays, got):
+    order = np.argsort(key_u32 >> begin_bit, axis=1, kind="stable")
+    assert len(got) == 1 + len(pays)
+    assert all(g.dtype == torch.int32 for g in got)
+    assert np.array_equal(_u32(got[0]), np.take_along_axis(key_u32, order, 1))
+    for g, p in zip(got[1:], pays):
+        assert np.array_equal(g.numpy(), np.take_along_axis(p.numpy(), order, 1))
+
+
+@pytest.mark.parametrize("begin_bit", [0, 8, 16, 24])
+@pytest.mark.parametrize("pays", PAYLOADS)
 @pytest.mark.parametrize("N", [16384, 65536])
-def test_sort_rows_random_unique_keys(N, key_dtype, pays):
+def test_sort_rows_random_unique_keys(N, pays, begin_bit):
     key = _random_unique_keys(2, N)
-    rng = np.random.default_rng(N)
-    raw = [rng.integers(0, 1 << 32, key.shape, dtype=np.uint32) for _ in pays]
-    ptens = [torch.from_numpy(r).view(dt) for r, dt in zip(raw, pays)]
-    got = sort_cuda.sort_rows(_as(key, key_dtype), *ptens)
-    order = np.argsort(key, axis=1, kind="stable")
-    assert got[0].dtype == key_dtype
-    assert np.array_equal(_u32(got[0]), np.take_along_axis(key, order, 1))
-    for g, r, dt in zip(got[1:], raw, pays):
-        assert g.dtype == dt
-        assert np.array_equal(g.view(torch.int32).numpy().view(np.uint32),
-                              np.take_along_axis(r, order, 1))
+    ptens = _payloads(pays, key.shape)
+    _check_sorted(key, begin_bit, ptens,
+                  sort_cuda.sort_rows(_i32(key), *ptens, begin_bit=begin_bit))
 
 
 def test_sort_rows_begin_bit_16_gives_the_full_order_of_matcher_keys():
     key = _matcher_keys(3, 65536, seed=2)
-    full, = sort_cuda.sort_rows(torch.from_numpy(key))
-    fast, = sort_cuda.sort_rows(torch.from_numpy(key), begin_bit=16)
+    full, = sort_cuda.sort_rows(_i32(key))
+    fast, = sort_cuda.sort_rows(_i32(key), begin_bit=16)
     want = np.sort(key, axis=1)
     assert np.array_equal(_u32(full), want)
     assert np.array_equal(_u32(fast), want)
@@ -119,8 +119,7 @@ def test_sort_rows_begin_bit_16_gives_the_full_order_of_matcher_keys():
 def test_sort_rows_begin_bit_is_a_stable_sort_of_the_high_bits(begin_bit):
     key = _random_unique_keys(2, 5000, seed=begin_bit)
     pay = np.arange(key.size, dtype=np.int32).reshape(key.shape)
-    k, p = sort_cuda.sort_rows(torch.from_numpy(key), torch.from_numpy(pay),
-                               begin_bit=begin_bit)
+    k, p = sort_cuda.sort_rows(_i32(key), torch.from_numpy(pay), begin_bit=begin_bit)
     order = np.argsort(key >> begin_bit, axis=1, kind="stable")
     assert np.array_equal(_u32(k), np.take_along_axis(key, order, 1))
     assert np.array_equal(p.numpy(), np.take_along_axis(pay, order, 1))
@@ -133,13 +132,12 @@ def _numpy_sorted(key_u32, begin_bit, *payloads):
 
 # rows of one tile or less, a last tile of one key short, exact, or one key
 # over (tiles of 4096 keys on the card), and several tiles with a short end
-@pytest.mark.parametrize("begin_bit", [0, 16])
-@pytest.mark.parametrize("N", [1, 4095, 4096, 4097, 12345])
+@pytest.mark.parametrize("begin_bit", [0, 8, 16, 24])
+@pytest.mark.parametrize("N", [1, 4095, 4096, 4097, 65537, 131072])
 def test_sort_rows_ragged_rows(N, begin_bit):
     key = _random_unique_keys(3, N, seed=N)
     pay = np.arange(key.size, dtype=np.int32).reshape(key.shape)
-    k, p = sort_cuda.sort_rows(_as(key, torch.int32), torch.from_numpy(pay),
-                               begin_bit=begin_bit)
+    k, p = sort_cuda.sort_rows(_i32(key), torch.from_numpy(pay), begin_bit=begin_bit)
     want_k, want_p = _numpy_sorted(key, begin_bit, pay)
     assert k.dtype == torch.int32 and p.dtype == torch.int32
     assert np.array_equal(_u32(k), want_k)
@@ -152,12 +150,11 @@ def test_sort_rows_row_of_one_digit(begin_bit):
     row has the same digit in each pass over bits 16..31."""
     from tpu7z_torch.ops import lz4_plane
     words = lz4_plane.phase0_words(torch.zeros((2, lz4_plane.BLOCK), dtype=torch.uint8))
-    key = lz4_plane.tier_b4_key(words)
-    assert key.dtype == torch.int64
+    key = sort_cuda.raw_bits(lz4_plane.tier_b4_key(words))
     assert bool(((key >> 16) == (key[0, 0] >> 16)).all())
     k, = sort_cuda.sort_rows(key, begin_bit=begin_bit)
-    assert k.dtype == torch.int64
-    assert np.array_equal(k.numpy(), _numpy_sorted(key.numpy(), begin_bit)[0])
+    assert k.dtype == torch.int32
+    assert np.array_equal(_u32(k), _numpy_sorted(_u32(key), begin_bit)[0])
     assert torch.equal(k, key)   # already in position order
 
 
@@ -182,9 +179,8 @@ def test_sort_rows_sentinel_tail(hashlog):
         assert torch.equal(tail, torch.arange(max(n - 3, 0), 65536, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("key_dtype", [torch.int32, torch.uint32, torch.int64],
-                         ids=["int32", "uint32", "int64"])
-def test_sort_rows_keys_at_or_above_2_31(key_dtype):
+@pytest.mark.parametrize("pays", PAYLOADS)
+def test_sort_rows_keys_at_or_above_2_31(pays):
     """Keys >= 2**31 sort after the smaller ones (as int32 they read
     negative; the order is that of the unsigned value)."""
     rng = np.random.default_rng(31)
@@ -192,59 +188,58 @@ def test_sort_rows_keys_at_or_above_2_31(key_dtype):
     key[:, ::2] |= np.uint32(0x80000000)
     key[:, 1::2] &= np.uint32(0x7FFFFFFF)
     key = np.stack([rng.permutation(np.unique(r))[:1000] for r in key])
-    k, = sort_cuda.sort_rows(_as(key, key_dtype))
-    got = _u32(k)
-    assert np.array_equal(got, np.sort(key, axis=1))
-    assert (got[:, -1] >= 1 << 31).all() and (got[:, 0] < 1 << 31).all()
+    ptens = _payloads(pays, key.shape)
+    got = sort_cuda.sort_rows(_i32(key), *ptens)
+    _check_sorted(key, 0, ptens, got)
+    k = _u32(got[0])
+    assert (k[:, -1] >= 1 << 31).all() and (k[:, 0] < 1 << 31).all()
 
 
-@pytest.mark.parametrize("begin_bit", [0, 16])
-def test_sort_rows_int64_and_int32_carriers_agree(begin_bit):
-    key = _matcher_keys(2, 20000, seed=9) ^ np.uint32(0x80000000)
-    pay = np.random.default_rng(9).integers(0, 1 << 32, key.shape, dtype=np.uint32)
-    got = {dt: sort_cuda.sort_rows(_as(key, dt), torch.from_numpy(pay).view(torch.float32),
-                                   begin_bit=begin_bit)
-           for dt in (torch.int32, torch.uint32, torch.int64)}
-    bits = {dt: (_u32(k), p.view(torch.int32).numpy().view(np.uint32))
-            for dt, (k, p) in got.items()}
-    want = _numpy_sorted(key, begin_bit, pay)
-    for dt, (k, p) in bits.items():
-        assert np.array_equal(k, want[0]) and np.array_equal(p, want[1]), dt
-    k64 = got[torch.int64][0]
-    assert k64.dtype == torch.int64 and bool((k64 >= 0).all() and (k64 < 1 << 32).all())
-
-
+# rows of one tile or less, at the tile edges, and over 65536 keys (17
+# and 32 tiles on the card)
 @pytest.mark.parametrize("begin_bit", [0, 8, 16, 24])
-@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
-@pytest.mark.parametrize("N", [5000, 65537, 1 << 17])
-def test_sort_rows_is_stable_on_duplicate_keys(N, key_dtype, begin_bit):
+@pytest.mark.parametrize("N", [1, 4095, 4096, 4097, 65537, 1 << 17])
+def test_sort_rows_is_stable_on_duplicate_keys(N, begin_bit):
     """Rows of any length, keys drawn from 300 values a row: equal keys keep
     their input order, so the position payload rises within each run of
-    equal keys (on the card, rows over 65536 keys span 17 and 32 tiles)."""
+    equal keys."""
     rng = np.random.default_rng(N + begin_bit)
     vals = rng.integers(0, 1 << 32, (2, 300), dtype=np.uint32)
     key = np.take_along_axis(vals, rng.integers(0, 300, (2, N)), 1)
     pos = np.broadcast_to(np.arange(N, dtype=np.int32), key.shape).copy()
-    k, p = sort_cuda.sort_rows(_as(key, key_dtype), torch.from_numpy(pos),
-                               begin_bit=begin_bit)
+    k, p = sort_cuda.sort_rows(_i32(key), torch.from_numpy(pos), begin_bit=begin_bit)
     want_k, want_p = _numpy_sorted(key, begin_bit, pos)
-    assert k.dtype == key_dtype and p.dtype == torch.int32
+    assert k.dtype == torch.int32 and p.dtype == torch.int32
     assert np.array_equal(_u32(k), want_k)
     assert np.array_equal(p.numpy(), want_p)
     hi = want_k >> begin_bit
     run = hi[:, 1:] == hi[:, :-1]
-    assert run.any() and (np.diff(want_p, axis=1)[run] > 0).all()
+    assert run.any() or N == 1
+    assert (np.diff(want_p, axis=1)[run] > 0).all()
 
 
-@pytest.mark.parametrize("key_dtype", [torch.int32, torch.uint32, torch.int64],
-                         ids=["int32", "uint32", "int64"])
+@pytest.mark.parametrize("pays", PAYLOADS)
 @pytest.mark.parametrize("shape", [(0, 16), (3, 0)], ids=["B0", "N0"])
-def test_sort_rows_empty(shape, key_dtype):
-    key = torch.zeros(shape, dtype=key_dtype)
-    pay = torch.zeros(shape, dtype=torch.float32)
-    k, p = sort_cuda.sort_rows(key, pay, begin_bit=16)
-    assert (k.dtype, p.dtype) == (key_dtype, torch.float32)
-    assert tuple(k.shape) == shape and tuple(p.shape) == shape
+def test_sort_rows_empty(shape, pays):
+    key = torch.zeros(shape, dtype=torch.int32)
+    ptens = _payloads(pays, shape)
+    got = sort_cuda.sort_rows(key, *ptens, begin_bit=16)
+    assert len(got) == 1 + len(ptens)
+    assert all(g.dtype == torch.int32 and tuple(g.shape) == shape for g in got)
+
+
+# what each caller passes: the LZ4 candidate stage's 1024 rows of 65536
+# keys at begin_bit 16, no payload; deflate's rows through
+# match.sort_order, 256 rows of 131069 hashes at hashlog 15 with the
+# position payload. `kernels.own_hbm_pct` reads these bytes through the
+# span `sort.rows`, so they are pinned.
+@pytest.mark.parametrize("shape,npay,begin_bit,want", [
+    ((1024, 65536), 0, 16, 1073741824),
+    ((256, 131069), 1, 16, 1073717248),
+], ids=["lz4_candidates", "deflate_sort_order"])
+def test_launch_bytes_of_the_callers(shape, npay, begin_bit, want):
+    key = torch.empty(shape, dtype=torch.int32, device="meta")
+    assert sort_cuda.launch_bytes(key, (key,) * npay, begin_bit) == want
 
 
 def _bad_calls():
@@ -254,8 +249,12 @@ def _bad_calls():
         "key_int16": ((k.to(torch.int16),), {}, TypeError),
         "key_float32": ((k.to(torch.float32),), {}, TypeError),
         "key_1d": ((k[0],), {}, ValueError),
+        "key_int64": ((k.to(torch.int64),), {}, TypeError),
+        "key_uint32": ((k.view(torch.uint32),), {}, TypeError),
         "payload_int64": ((k, k.to(torch.int64)), {}, TypeError),
+        "payload_float32": ((k, k.view(torch.float32)), {}, TypeError),
         "payload_shape": ((k, k[:, :8].contiguous()), {}, ValueError),
+        "two_payloads": ((k, k, k), {}, ValueError),
         "four_payloads": ((k, k, k, k, k), {}, ValueError),
         "not_contiguous": ((torch.zeros((16, 2), dtype=torch.int32).t(),), {}, ValueError),
         "begin_bit_4": ((k,), {"begin_bit": 4}, ValueError),

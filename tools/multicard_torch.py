@@ -42,7 +42,7 @@ def encode_rank(device: str, size: int, reps: int = 5) -> dict:
     from tpu7z_torch.ops import lz4_cuda
     from tpu7z_torch.parallel import distributed, sharded
     from tpu7z_torch.utils.corpus import make_corpus
-    from tpu7z_torch.utils.timing import timed
+    from chip_smoke import timed
 
     corpus = make_corpus(size)
     group = distributed.global_mesh()

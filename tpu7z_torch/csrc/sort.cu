@@ -1,7 +1,7 @@
-// Hand-written Hopper row sort: each row of a (B, N) key array sorted
-// stably by the key's bits [begin_bit, 32), with up to three 32-bit
-// payloads carried along. Stable: keys equal in those bits keep their
-// input order, so duplicate keys are allowed.
+// Hand-written Hopper row sort: each row of a (B, N) array of u32 keys
+// sorted stably by the key's bits [begin_bit, 32), with no payload or one
+// 32-bit payload carried along. Stable: keys equal in those bits keep
+// their input order, so duplicate keys are allowed.
 //
 // Replaces tpu7z/ops/sort_pallas.py:76 _chunk_kernel, reached through
 // bitonic_sort (:89-127): 34 launches of 4 compare-exchange stages each,
@@ -40,32 +40,25 @@
 //     counters into tile offsets with one block-wide scan, stages the
 //     tile in digit order in shared memory, and writes each digit's run
 //     to its row slot, so neighbouring threads write neighbouring
-//     addresses. Payloads follow through the same staging slots and
+//     addresses. The payload follows through the same staging slots and
 //     destinations.
 // Stability across tiles comes from the tile order in the scan; no atomic
 // touches device memory. Passes ping-pong through one u32 scratch row per
-// operand and `out` (used as u32 scratch on the way), so that the last
-// pass lands in `out` for every begin_bit (4, 3, 2 or 1 passes).
-//
-// The key's carrier is read by the kernels themselves: the first pass
-// reads 4- or 8-byte keys (an 8-byte key gives its low 32 bits) and the
-// last pass writes the key's width back (zero-extended); the scratch rows
-// between passes are u32. That is what the wrapper's int64 <-> int32
-// conversions computed, without their five elementwise passes.
+// operand and `out` (used as scratch on the way), so that the last pass
+// lands in `out` for every begin_bit (4, 3, 2 or 1 passes).
 //
 // Why tile-parallel: one CTA per row (the previous design) left 512 CTAs
 // for 132 SMs, each walking its row in series between barriers; here the
-// main path's 512 x 65536 sort has 8192 CTAs a pass, short ones, with
-// every key load in flight at once.
+// main path's sort, the LZ4 candidate stage's 1024 rows of 65536 keys at
+// begin_bit 16, has 16384 CTAs a pass, short ones, with every key load in
+// flight at once.
 //
-// Bound: bytes. Every key and payload read once and written once: the
-// main path's sort of 512 rows of 65536 int64 keys moves 16 B a key,
-// 537 MB, 0.160 ms at 3.35 TB/s (int32 keys: 268 MB, 0.080 ms). This
-// design reads each key twice a pass (count, scatter) and writes it once
-// (the count table, 1 KiB a tile, adds 1 B a key a pass, read and written):
-// at begin_bit = 16, read 8 + 8 and write 4 in the first pass, read 4 + 4
-// and write 8 in the second, 36 B a key, 1.21 GB (24 B, 0.81 GB, with
-// int32 keys); each payload is read and written once a pass.
+// Bound: bytes. Every key read once and written once: the main path's
+// sort moves 8 B a key, 537 MB, 0.160 ms at 3.35 TB/s. This design reads
+// each key twice a pass (count, scatter) and writes it once (the count
+// table, 1 KiB a tile, adds 1 B a key a pass, read and written): at
+// begin_bit = 16, two passes of 12 B a key, 1.61 GB; a payload is read
+// and written once a pass.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -79,19 +72,19 @@ constexpr int TILE = THREADS * KPT;     // 4096 keys a CTA
 constexpr int WCHUNK = 32 * KPT;        // a warp's contiguous share of a tile
 constexpr int RADIX = 256;
 constexpr int WPAD = NWARPS + 1;        // (digit, warp) counters: a warp's distinct digits hit distinct banks
-constexpr int MAX_PAYLOADS = 3;
+constexpr int MAX_PAYLOADS = 1;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(RADIX == THREADS, "one digit a thread in the scans");
 
 struct Operands {
-  const void* in[1 + MAX_PAYLOADS];   // key, then payloads
-  void* out[1 + MAX_PAYLOADS];
-  void* tmp[1 + MAX_PAYLOADS];        // u32 scratch rows (B, N) per operand
+  const uint32_t* in[1 + MAX_PAYLOADS];   // key, then the payload
+  uint32_t* out[1 + MAX_PAYLOADS];
+  uint32_t* tmp[1 + MAX_PAYLOADS];        // u32 scratch rows (B, N) per operand
 };
 
 struct Pass {
-  const void* key_src;
-  void* key_dst;
+  const uint32_t* key_src;
+  uint32_t* key_dst;
   const uint32_t* pay_src[MAX_PAYLOADS];
   uint32_t* pay_dst[MAX_PAYLOADS];
 };
@@ -137,19 +130,17 @@ __device__ int block_exclusive_scan(int v, int* wsum) {
   return pre + inc - v;
 }
 
-// A tile's keys as u32, key i of a thread at element e0 + 32 i of the row
-// (0 past its end); an 8-byte key gives its low word.
-template <typename KIn>
-__device__ __forceinline__ void load_keys(const KIn* __restrict__ src, size_t rowoff, int e0,
-                                          int N, uint32_t (&key)[KPT]) {
+// A tile's keys, key i of a thread at element e0 + 32 i of the row (0
+// past its end).
+__device__ __forceinline__ void load_keys(const uint32_t* __restrict__ src, size_t rowoff,
+                                          int e0, int N, uint32_t (&key)[KPT]) {
 #pragma unroll
   for (int i = 0; i < KPT; ++i)
-    key[i] = e0 + 32 * i < N ? (uint32_t)src[rowoff + e0 + 32 * i] : 0u;
+    key[i] = e0 + 32 * i < N ? src[rowoff + e0 + 32 * i] : 0u;
 }
 
-template <typename KIn>
 __global__ void __launch_bounds__(THREADS, 8)
-count_kernel(const KIn* __restrict__ src, uint32_t* __restrict__ counts, int N, int tiles,
+count_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ counts, int N, int tiles,
              int shift) {
   __shared__ int hist[NWARPS * RADIX];   // one histogram a warp
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -191,7 +182,7 @@ scan_kernel(uint32_t* __restrict__ counts, int tiles) {
 
 // Three CTAs an SM for the key-only form: at four its 16 keys and 16
 // slots a thread no longer fit the registers and spill.
-template <int NPAY, typename KIn, typename KOut>
+template <int NPAY>
 __global__ void __launch_bounds__(THREADS, NPAY == 0 ? 3 : 2)
 scatter_kernel(Pass ps, const uint32_t* __restrict__ slots, int N, int tiles, int shift) {
   __shared__ uint32_t stage[TILE];
@@ -205,10 +196,10 @@ scatter_kernel(Pass ps, const uint32_t* __restrict__ slots, int N, int tiles, in
   const size_t rowoff = (size_t)row * N;
   const int n = min(TILE, N - tile * TILE);
   const int e0 = tile * TILE + warp * WCHUNK + lane;
-  KOut* __restrict__ dst = static_cast<KOut*>(ps.key_dst);
+  uint32_t* __restrict__ dst = ps.key_dst;
 
   uint32_t key[KPT];
-  load_keys(static_cast<const KIn*>(ps.key_src), rowoff, e0, N, key);
+  load_keys(ps.key_src, rowoff, e0, N, key);
   for (int i = t; i < RADIX * WPAD; i += THREADS) wcnt[i] = 0;
   // the row slot of this tile's first key of digit t
   const int row_slot = (int)slots[(size_t)blockIdx.x * RADIX + t];
@@ -269,11 +260,11 @@ scatter_kernel(Pass ps, const uint32_t* __restrict__ slots, int N, int tiles, in
     if (j < n) {
       const uint32_t v = stage[j];
       dpos[k] = gbase[digit_of(v, shift)] + j;
-      dst[rowoff + dpos[k]] = (KOut)v;
+      dst[rowoff + dpos[k]] = v;
     }
   }
 
-  // 5. payloads follow through the same slots and destinations
+  // 5. the payload follows through the same slots and destinations
 #pragma unroll
   for (int o = 0; o < NPAY; ++o) {
     uint32_t val[KPT];
@@ -293,48 +284,36 @@ scatter_kernel(Pass ps, const uint32_t* __restrict__ slots, int N, int tiles, in
   }
 }
 
-template <int NPAY, typename KIn, typename KOut>
+template <int NPAY>
 cudaError_t run_pass(const Pass& ps, uint32_t* counts, int B, int N, int tiles, int shift,
                      cudaStream_t stream) {
   const unsigned grid = (unsigned)B * (unsigned)tiles;
-  count_kernel<KIn><<<grid, THREADS, 0, stream>>>(static_cast<const KIn*>(ps.key_src), counts,
-                                                  N, tiles, shift);
+  count_kernel<<<grid, THREADS, 0, stream>>>(ps.key_src, counts, N, tiles, shift);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   scan_kernel<<<(unsigned)B, THREADS, 0, stream>>>(counts, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  scatter_kernel<NPAY, KIn, KOut><<<grid, THREADS, 0, stream>>>(ps, counts, N, tiles, shift);
+  scatter_kernel<NPAY><<<grid, THREADS, 0, stream>>>(ps, counts, N, tiles, shift);
   return cudaGetLastError();
 }
 
 template <int NPAY>
-cudaError_t sort_passes(const Operands& ops, bool wide, uint32_t* counts, int B, int N,
-                        int begin_bit, cudaStream_t stream) {
+cudaError_t sort_passes(const Operands& ops, uint32_t* counts, int B, int N, int begin_bit,
+                        cudaStream_t stream) {
   const int npass = (32 - begin_bit) / 8, tiles = (N + TILE - 1) / TILE;
   for (int p = 0; p < npass; ++p) {
     // pass p reads what pass p-1 wrote; the last pass writes `out`
-    const bool first = p == 0, last = p == npass - 1;
+    const bool first = p == 0;
     const bool to_tmp = ((npass - 1 - p) & 1) != 0;
     Pass ps;
     ps.key_src = first ? ops.in[0] : (to_tmp ? ops.out[0] : ops.tmp[0]);
     ps.key_dst = to_tmp ? ops.tmp[0] : ops.out[0];
     for (int o = 0; o < MAX_PAYLOADS; ++o) {
-      const void* src = first ? ops.in[1 + o] : (to_tmp ? ops.out[1 + o] : ops.tmp[1 + o]);
-      ps.pay_src[o] = static_cast<const uint32_t*>(src);
-      ps.pay_dst[o] = static_cast<uint32_t*>(to_tmp ? ops.tmp[1 + o] : ops.out[1 + o]);
+      ps.pay_src[o] = first ? ops.in[1 + o] : (to_tmp ? ops.out[1 + o] : ops.tmp[1 + o]);
+      ps.pay_dst[o] = to_tmp ? ops.tmp[1 + o] : ops.out[1 + o];
     }
-    const int shift = begin_bit + 8 * p;
-    const bool in8 = wide && first, out8 = wide && last;
-    cudaError_t err;
-    if (in8 && out8)
-      err = run_pass<NPAY, uint64_t, uint64_t>(ps, counts, B, N, tiles, shift, stream);
-    else if (in8)
-      err = run_pass<NPAY, uint64_t, uint32_t>(ps, counts, B, N, tiles, shift, stream);
-    else if (out8)
-      err = run_pass<NPAY, uint32_t, uint64_t>(ps, counts, B, N, tiles, shift, stream);
-    else
-      err = run_pass<NPAY, uint32_t, uint32_t>(ps, counts, B, N, tiles, shift, stream);
+    const cudaError_t err = run_pass<NPAY>(ps, counts, B, N, tiles, begin_bit + 8 * p, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -352,19 +331,15 @@ const char* sort_error_string(int err) { return cudaGetErrorString((cudaError_t)
 
 int sort_tile() { return TILE; }
 
-// What the compiler and the card make of the kernels of the main path's
-// sort (int64 keys, begin_bit 16, no payloads), in launch order: 0 count
-// (8-byte keys in), 1 scan, 2 scatter (8-byte keys in, u32 out), 3 count
-// (u32), 4 scatter (u32 in, 8-byte keys out). Registers and local (spill)
-// bytes a thread, static shared bytes and threads a CTA, resident CTAs
-// per SM.
+// What the compiler and the card make of the sort's kernels: 0 count,
+// 1 scan, 2 scatter without a payload, 3 scatter with one. Registers and
+// local (spill) bytes a thread, static shared bytes and threads a CTA,
+// resident CTAs per SM.
 int sort_kernel_info(int which, int* regs, int* local_bytes, int* shared_bytes, int* threads,
                      int* ctas_per_sm) {
-  const void* fns[5] = {(const void*)count_kernel<uint64_t>, (const void*)scan_kernel,
-                        (const void*)scatter_kernel<0, uint64_t, uint32_t>,
-                        (const void*)count_kernel<uint32_t>,
-                        (const void*)scatter_kernel<0, uint32_t, uint64_t>};
-  if (which < 0 || which > 4) return (int)cudaErrorInvalidValue;
+  const void* fns[4] = {(const void*)count_kernel, (const void*)scan_kernel,
+                        (const void*)scatter_kernel<0>, (const void*)scatter_kernel<1>};
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, fns[which]);
   if (err != cudaSuccess) return (int)err;
@@ -375,36 +350,28 @@ int sort_kernel_info(int which, int* regs, int* local_bytes, int* shared_bytes, 
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fns[which], THREADS, 0);
 }
 
-// keys: (B, N) rows of key_bytes (4 or 8) each, contiguous; an 8-byte key
-// is read as its low 32 bits and written back zero-extended. Payloads:
-// (B, N) 32-bit rows. `in` operands are only read; `out` receives the
+// keys: (B, N) rows of u32, contiguous; the payload, when npay is 1:
+// (B, N) rows of 32 bits. `in` operands are only read; `out` receives the
 // sorted rows; `tmp` rows are u32 scratch, needed (non-null) when more
 // than one pass runs. `counts` is scratch of B * ceil(N / sort_tile()) *
-// 256 u32. Payload pointers past npay are ignored. begin_bit is 0, 8, 16
-// or 24: the sort orders by bits [begin_bit, 32) and keeps the input order
-// among equal bits. Launches 3 kernels a pass, none when B or N is 0.
-// Refuses (cudaErrorInvalidValue, nothing launched) a grid of more than
-// 2**31 - 1 CTAs (B * tiles) and rows too long for int positions.
-int sort_rows_launch(const void* key_in, void* key_out, void* key_tmp, const void* p0_in,
-                     void* p0_out, void* p0_tmp, const void* p1_in, void* p1_out, void* p1_tmp,
-                     const void* p2_in, void* p2_out, void* p2_tmp, uint32_t* counts, int npay,
-                     int key_bytes, int B, int N, int begin_bit, cudaStream_t stream) {
-  if (npay < 0 || npay > MAX_PAYLOADS || (key_bytes != 4 && key_bytes != 8) || B < 0 || N < 0 ||
-      N > 0x7fffffff - TILE || begin_bit < 0 || begin_bit > 24 || begin_bit % 8 != 0 ||
+// 256 u32. The payload's pointers are ignored when npay is 0. begin_bit
+// is 0, 8, 16 or 24: the sort orders by bits [begin_bit, 32) and keeps
+// the input order among equal bits. Launches 3 kernels a pass, none when
+// B or N is 0. Refuses (cudaErrorInvalidValue, nothing launched) npay
+// other than 0 or 1, a grid of more than 2**31 - 1 CTAs (B * tiles) and
+// rows too long for int positions.
+int sort_rows_launch(const uint32_t* key_in, uint32_t* key_out, uint32_t* key_tmp,
+                     const uint32_t* pay_in, uint32_t* pay_out, uint32_t* pay_tmp,
+                     uint32_t* counts, int npay, int B, int N, int begin_bit,
+                     cudaStream_t stream) {
+  if (npay < 0 || npay > MAX_PAYLOADS || B < 0 || N < 0 || N > 0x7fffffff - TILE ||
+      begin_bit < 0 || begin_bit > 24 || begin_bit % 8 != 0 ||
       (long long)B * ((N + TILE - 1) / TILE) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || N == 0) return (int)cudaSuccess;
-  const Operands ops = {{key_in, p0_in, p1_in, p2_in},
-                        {key_out, p0_out, p1_out, p2_out},
-                        {key_tmp, p0_tmp, p1_tmp, p2_tmp}};
-  const bool wide = key_bytes == 8;
-  cudaError_t err;
-  switch (npay) {
-    case 0: err = sort_passes<0>(ops, wide, counts, B, N, begin_bit, stream); break;
-    case 1: err = sort_passes<1>(ops, wide, counts, B, N, begin_bit, stream); break;
-    case 2: err = sort_passes<2>(ops, wide, counts, B, N, begin_bit, stream); break;
-    default: err = sort_passes<3>(ops, wide, counts, B, N, begin_bit, stream); break;
-  }
+  const Operands ops = {{key_in, pay_in}, {key_out, pay_out}, {key_tmp, pay_tmp}};
+  const cudaError_t err = npay == 0 ? sort_passes<0>(ops, counts, B, N, begin_bit, stream)
+                                    : sort_passes<1>(ops, counts, B, N, begin_bit, stream);
   return (int)err;
 }
 

@@ -6,8 +6,8 @@ data-parallel doubling sort over rotations. Each round orders the
 rotations by (rank[i], rank[(i + k) mod n]), as tpu7z's `np.lexsort`
 does, in two stable row sorts (`sort_rows` on the card, its plain
 version on the CPU): first by the second key, then by the rank. A
-packed 64-bit (rank, key2) key would not do: the row sort reads an
-int64 key as its low 32 bits. The new ranks are a cumsum of the key
+packed 64-bit (rank, key2) key would not do: the row sort takes 32-bit
+keys. The new ranks are a cumsum of the key
 changes along the sorted order; the round's `rank.max() == n - 1` is
 read on the host, as there. Ranks stay below n, and bzip2's blocks below
 2**20 bytes, so each pass sorts a key of at most 20 bits in 3 digits.

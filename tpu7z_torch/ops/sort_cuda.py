@@ -1,28 +1,25 @@
-"""Stable row sort of uint32 keys with 32-bit payloads, on Hopper.
+"""Stable row sort of uint32 keys with an optional int32 payload, on Hopper.
 
 The counterpart of tpu7z/ops/sort_pallas.py `bitonic_sort`:
-`sort_rows(key, *payloads)` sorts each row of a (B, N) key tensor
-ascending and returns `(key_sorted, *payloads_sorted)`, every dtype kept.
-Rows may be of any length and keys need not be unique: the sort is
-stable, so equal keys keep their input order (the bitonic sort takes
-rows of 65536 keys and is not stable). The kernel is a stable LSD radix
-sort in csrc/sort.cu; its plain version is `sort_rows_ref`
-(`torch.sort(stable=True)` and `gather`).
+`sort_rows(key)` or `sort_rows(key, payload)` sorts each row of a (B, N)
+key tensor ascending and returns `(key_sorted,)` or `(key_sorted,
+payload_sorted)`. Rows may be of any length and keys need not be
+unique: the sort is stable, so equal keys keep their input order (the
+bitonic sort takes rows of 65536 keys and is not stable). The kernel is
+a stable LSD radix sort in csrc/sort.cu; its plain version is
+`sort_rows_ref` (`torch.sort(stable=True)` and `gather`).
 
-Keys are uint32 values, carried in any of three dtypes:
-  - torch.uint32, the values themselves;
-  - torch.int32, their raw bits (a key >= 2**31 reads as negative);
-  - torch.int64 holding values in [0, 2**32), as lz4_plane's masked
-    unsigned arithmetic does.
-Payloads are 32-bit tensors of any dtype (int32, uint32, float32), moved
-as raw bits.
+Keys are uint32 values carried as torch.int32, their raw bits (a key >=
+2**31 reads as negative); `raw_bits` makes them from int64 hashes. The
+payload is an int32 tensor. That is what the two callers pass: the LZ4
+candidate stage (`lz4_cuda.candidates`, no payload, begin_bit 16) and
+the match finder's stable order by hash (`match.sort_order`, the
+position as payload), which serves every other codec's parse.
 
 On CPU tensors the wrapper runs the plain version; on CUDA tensors it
 launches the kernels or raises. There is no fallback between the two.
-The kernel reads and writes the key's own carrier: an int64 key is read
-as its low 32 bits and written back zero-extended, so no conversion runs
-around it. Each pass is three launches (count and scatter over the
-tiles of every row, a scan of each row's count table between them);
+Each pass is three launches (count and scatter over the tiles of every
+row, a scan of each row's count table between them);
 LAUNCHES["sort_rows"] counts one per `sort_rows` call that launches
 them, whatever the number of passes.
 """
@@ -36,12 +33,12 @@ import torch
 from ..utils import trace
 from . import _build
 
-MAX_PAYLOADS = 3
-KEY_DTYPES = (torch.int32, torch.uint32, torch.int64)
+MAX_PAYLOADS = 1
+KEY_DTYPES = (torch.int32,)
 BEGIN_BITS = (0, 8, 16, 24)
 RADIX = 256
-# the kernels of the main path's sort, in the order of sort_kernel_info
-INFO_KERNELS = ("count_i64", "scan", "scatter_i64_u32", "count_u32", "scatter_u32_i64")
+# the sort's kernels, in the order of sort_kernel_info
+INFO_KERNELS = ("count", "scan", "scatter_0pay", "scatter_1pay")
 
 # kernel launches made by the wrapper in this process
 LAUNCHES = {"sort_rows": 0}
@@ -59,7 +56,7 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load("sort")
-        lib.sort_rows_launch.argtypes = [_P] * 13 + [_I] * 5 + [_P]
+        lib.sort_rows_launch.argtypes = [_P] * 7 + [_I] * 4 + [_P]
         lib.sort_rows_launch.restype = ctypes.c_int
         lib.sort_error_string.argtypes = [ctypes.c_int]
         lib.sort_error_string.restype = ctypes.c_char_p
@@ -77,10 +74,10 @@ def _raise_on(err, what):
 
 
 def kernel_info():
-    """What the compiler and the current card make of the kernels of the
-    main path's sort (int64 keys, begin_bit 16, no payloads), in launch
-    order: name -> registers and local (spill) bytes a thread, static
-    shared bytes and threads a CTA, resident CTAs per SM."""
+    """What the compiler and the current card make of the sort's four
+    kernels (count, scan, and scatter without and with the payload): name
+    -> registers and local (spill) bytes a thread, static shared bytes and
+    threads a CTA, resident CTAs per SM."""
     lib = _library()
     info = {}
     for which, name in enumerate(INFO_KERNELS):
@@ -100,12 +97,6 @@ def raw_bits(t):
     return t.view(torch.int32)
 
 
-def _from_bits(bits, dtype):
-    if dtype == torch.int64:
-        return bits.to(torch.int64) & 0xFFFFFFFF
-    return bits.view(dtype)
-
-
 def _check(key, payloads, begin_bit):
     if not isinstance(key, torch.Tensor) or key.dim() != 2:
         raise ValueError("key: expected a (B, N) tensor")
@@ -114,10 +105,10 @@ def _check(key, payloads, begin_bit):
     if not key.is_contiguous():
         raise ValueError("key: must be contiguous")
     if len(payloads) > MAX_PAYLOADS:
-        raise ValueError(f"at most {MAX_PAYLOADS} payloads, got {len(payloads)}")
+        raise ValueError(f"at most {MAX_PAYLOADS} payload, got {len(payloads)}")
     for i, p in enumerate(payloads):
-        if not isinstance(p, torch.Tensor) or p.element_size() != 4:
-            raise TypeError(f"payload {i}: expected a tensor of a 32-bit dtype")
+        if not isinstance(p, torch.Tensor) or p.dtype != torch.int32:
+            raise TypeError(f"payload {i}: expected an int32 tensor")
         if p.shape != key.shape:
             raise ValueError(f"payload {i}: shape {tuple(p.shape)}, expected {tuple(key.shape)}")
         if p.device != key.device:
@@ -131,25 +122,21 @@ def _check(key, payloads, begin_bit):
 def sort_rows_ref(key, *payloads, begin_bit: int = 0):
     """Plain version: a stable sort of each row by the key's bits
     [begin_bit, 32), on any device."""
-    k = raw_bits(key).to(torch.int64) & 0xFFFFFFFF
+    k = key.to(torch.int64) & 0xFFFFFFFF
     _, order = torch.sort(k >> begin_bit, dim=1, stable=True)
-    return tuple(_from_bits(raw_bits(t).gather(1, order), t.dtype)
-                 for t in (key,) + payloads)
+    return tuple(t.gather(1, order) for t in (key,) + payloads)
 
 
 def launch_bytes(key, payloads, begin_bit: int = 0):
     """Bytes one `sort_rows` call reads and writes by its contract: in
-    each pass every operand is read once and written once, the key in its
-    own carrier where the first pass reads it and the last writes it, as
-    u32 in between, and each payload as its 32 bits. The count table (1 B
-    a key a pass) is left out. The span `sort.rows` carries it as
-    `bytes`, on the CPU path too; 0 for anything that is not a 2-D
-    tensor, which the checks then refuse."""
+    each pass every operand, 4 bytes an element, is read once and written
+    once. The count table (1 B a key a pass) is left out. The span
+    `sort.rows` carries it as `bytes`, on the CPU path too; 0 for
+    anything that is not a 2-D tensor, which the checks then refuse."""
     if not isinstance(key, torch.Tensor) or key.dim() != 2 or begin_bit not in BEGIN_BITS:
         return 0
     npass = (32 - begin_bit) // 8
-    key_bytes = 2 * key.element_size() + 8 * (npass - 1)
-    return key.numel() * (key_bytes + 8 * npass * len(payloads))
+    return key.numel() * 8 * npass * (1 + len(payloads))
 
 
 def sort_rows(key, *payloads, begin_bit: int = 0):
@@ -201,7 +188,7 @@ def _launch(key, payloads, outs, scratch, begin_bit):
         args += [o.data_ptr(), out.data_ptr(), tmp.data_ptr() if tmp is not None else None]
     args += [None] * (3 * (1 + MAX_PAYLOADS) - len(args))
     stream = torch.cuda.current_stream(key.device).cuda_stream
-    _raise_on(_library().sort_rows_launch(*args, counts.data_ptr(), len(payloads),
-                                          key.element_size(), B, N, begin_bit, stream),
+    _raise_on(_library().sort_rows_launch(*args, counts.data_ptr(), len(payloads), B, N,
+                                          begin_bit, stream),
               "sort_rows")
     LAUNCHES["sort_rows"] += 1
