@@ -177,7 +177,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      and x of a .cab, a .rar and a stored .rar of 512 KiB, `x -mmt1`
      streaming the corpus's .lz4, .zst, .gz, .bz2 and .xz, `a -v8m` and
      `x` of the `.001`, `-i!`, `-x!` and `-bb`. Each step prints its
-     seconds (host clock), bytes and row sorts.
+     seconds (host clock), bytes and row sorts;
+ 16. the shared LZ matcher's exact lengths (csrc/lz_match.cu through
+     `hash_chain.match_lengths`): (a) the arguments of the matcher's call
+     at each caller's shape (the gzip writer over 4 MiB of text, lengths
+     up to 258; LZMA's fast parse over the same 4 MiB, MATCH_MAX 273;
+     LZ4's tensor parse over 4 MiB of zeros and of random bytes, limits to
+     the end): one call and one launch in the caller's own run, the
+     kernel equal to its plain version `match_lengths_ref`, exactly; one
+     call of each (CUDA events, median of 5) beside the kernel alone (10
+     launches back to back into buffers from `buffers`, CUDA events, the
+     last launch's lengths checked again), its bound (`launch_bytes` at
+     3.35 TB/s) and the work's own (pos, cand and limit read, the lengths
+     written, s read once), and the plain version's call, which is the
+     code the matcher ran on the card before the kernel; the kernel's
+     registers, spills and CTAs per SM; (b) the matcher's callers with the
+     kernel and with the plain version in its place, in turns (plain,
+     kernel, kernel, plain): gzip of 4 MiB of text,
+     `lzma2.compress_chunks` over 8 MiB, LZ4's `compress_frame(corpus,
+     accel=2)`, LZ5's frame of the corpus, Lizard's at level 11 (its
+     greedy parse) of 4 MiB, the MSZIP cabinet of the corpus's eight 4 MiB
+     files; each with its bytes equal on every run, one launch for each of
+     its calls of the matcher with entries (none on the plain runs), its
+     seconds and its `lz.match_lengths` span's (host clock, tracing on).
 The timing helpers (`card`, `sample_ms`, `timed`, `timed_launches`)
 are this script's own. The line before the last is the per-kernel JSON;
 the last line is the device JSON. Imports nothing of JAX or tpu7z.
@@ -210,6 +232,7 @@ REPLACES = {
     "lz4_geometry": "tpu7z/ops/lz4_pallas.py:77",
     "lz4_emit": "tpu7z/ops/lz4_pallas.py:108,120,127",
     "sort_rows": "tpu7z/ops/sort_pallas.py:76",
+    "lz_match_lengths": "none: tpu7z/models/lz4/block.py:195 _match_lengths is numpy",
 }
 ODD = 2654435761
 TEXT = 696156                 # the corpus's first byte past its sparse chunk
@@ -2425,6 +2448,146 @@ def max_abs_err(got, want):
     return err
 
 
+def lz_match_phase(corpus, dev, card_label):
+    """Phase 16, the shared LZ matcher's exact lengths on the card: (a) the
+    kernel against its plain version at each caller's shape, timed beside
+    its bound and the plain version; (b) the callers with the kernel and
+    with the plain version in its place, in turns. Returns the numbers for
+    the log."""
+    from tpu7z_torch.containers import cab
+    from tpu7z_torch.models import lizard as LIZ
+    from tpu7z_torch.models import lz5 as LZ5
+    from tpu7z_torch.models.deflate import codec as DFC
+    from tpu7z_torch.models.lz4 import block as LB
+    from tpu7z_torch.models.lz4 import frame as LF
+    from tpu7z_torch.models.lzma import encoder as LE
+    from tpu7z_torch.models.lzma import lzma2 as L2
+    from tpu7z_torch.ops import hash_chain as HC
+    from tpu7z_torch.utils import trace
+
+    mib = 1 << 20
+    kernel = HC.match_lengths
+
+    def plain(s, pos, cand, limit):
+        """The matcher as it ran on the card before the kernel."""
+        with trace.stage("lz.match_lengths", s.device):
+            return HC.match_lengths_ref(s, pos, cand, limit)
+
+    def with_matcher(fn, run):
+        HC.match_lengths = fn
+        try:
+            return run()
+        finally:
+            HC.match_lengths = kernel
+
+    info = HC.kernel_info()
+    log(f"lz_match_kernel: {info}")
+    if info["local_bytes"]:
+        raise AssertionError(f"lz_match_kernel spills {info['local_bytes']} bytes a thread")
+    out = {"kernel_info": info, "shapes": {}, "callers": {}, "launches_by_path": {}}
+
+    # (a) each caller's arguments, captured from its run on the card
+    text = corpus[TEXT:TEXT + 4 * mib]
+    noise = np.random.default_rng(16).integers(0, 256, 4 * mib, np.uint8).tobytes()
+    shapes = {
+        "gzip": lambda: DFC.gzip_compress(text, device=dev),
+        "lzma": lambda: LE.WindowMatcher(text, device=dev),
+        "lz4_zeros": lambda: LB.compress_block(bytes(4 * mib), accel=2, device=dev),
+        "lz4_random": lambda: LB.compress_block(noise, accel=2, device=dev),
+    }
+    for name, run in shapes.items():
+        seen = []
+
+        def record(*args):
+            seen.append(args)
+            return kernel(*args)
+
+        HC.reset_launches()
+        with_matcher(record, run)
+        launches = HC.LAUNCHES["lz_match_lengths"]
+        if len(seen) != 1 or launches != 1:
+            raise AssertionError(f"{name}: {len(seen)} calls of match_lengths and {launches} "
+                                 f"launches in the caller's run, expected 1 and 1")
+        out["launches_by_path"][name] = launches
+        s = seen[0][0]
+        pos, cand, limit = (t.to(torch.int64).contiguous() for t in seen[0][1:])
+        args = (s, pos, cand, limit)
+        got = kernel(*args)
+        want = HC.match_lengths_ref(*args)
+        if not torch.equal(got, want):
+            raise AssertionError(f"match_lengths at {name}'s shape differs from its plain version")
+        n, m = s.numel(), pos.numel()
+        ms = timed(lambda: kernel(*args))
+        bufs = HC.buffers(n, m, dev)
+        alone_ms = timed_launches(lambda: HC._launch(*args, *bufs))
+        if not torch.equal(bufs[0], want):
+            raise AssertionError(f"the kernel's back-to-back launches at {name}'s shape differ "
+                                 f"from its plain version")
+        plain_ms = timed(lambda: HC.match_lengths_ref(*args))
+        bound_ms = HC.launch_bytes(n, m) / HBM_BYTES_PER_S * 1e3
+        work_bound_ms = (32 * m + n) / HBM_BYTES_PER_S * 1e3
+        log(f"match_lengths at {name}'s shape (n {n}, {m} entries, limits {int(limit.min())}-"
+            f"{int(limit.max())}, lengths to {int(got.max())}): 1 launch in the caller's run, "
+            f"equal to its plain version; the call {ms:.4f} ms, the kernel alone {alone_ms:.4f} "
+            f"ms, bound {bound_ms:.4f} ms with its scratch planes and {work_bound_ms:.4f} ms "
+            f"without them; the plain version {plain_ms:.3f} ms ({card_label})")
+        out["shapes"][name] = {"n": n, "m": m, "ms": ms, "alone_ms": alone_ms,
+                               "bound_ms": bound_ms, "work_bound_ms": work_bound_ms,
+                               "plain_ms": plain_ms}
+        del seen, args, got, want, bufs
+
+    # (b) the callers with either matcher, in turns
+    files = {f"part{i}.bin": corpus[i * 4 * mib:(i + 1) * 4 * mib]
+             for i in range(len(corpus) // (4 * mib))}
+    callers = {
+        "gzip 4 MiB": lambda: DFC.gzip_compress(text, device=dev),
+        "lzma2.compress_chunks 8 MiB": lambda: L2.compress_chunks(corpus[:8 * mib], device=dev),
+        "lz4 compress_frame(corpus, accel=2)": lambda: LF.compress_frame(corpus, accel=2,
+                                                                         device=dev),
+        "lz5 compress_frame(corpus)": lambda: LZ5.compress_frame(corpus, device=dev),
+        "lizard compress_frame(4 MiB, 11)": lambda: LIZ.compress_frame(corpus[:4 * mib],
+                                                                       level=11, device=dev),
+        "cab MSZIP of the corpus": lambda: cab.write_cab(files, device=dev),
+    }
+    for what, run in callers.items():
+        runs = {"plain": [], "kernel": []}
+        digests = set()
+        for side, fn in (("plain", plain), ("kernel", kernel), ("kernel", kernel),
+                         ("plain", plain)):
+            calls = []
+
+            def counted(s, pos, cand, limit, fn=fn, calls=calls):
+                calls.append(pos.numel())
+                return fn(s, pos, cand, limit)
+
+            HC.reset_launches()
+            t = time.perf_counter()
+            got, spans = with_matcher(counted, lambda: spans_of(run))
+            seconds = time.perf_counter() - t
+            launches = HC.LAUNCHES["lz_match_lengths"]
+            want = sum(1 for m in calls if m) if side == "kernel" else 0
+            if not calls or launches != want:
+                raise AssertionError(f"{what}, {side}: {launches} launches for {len(calls)} "
+                                     f"calls of match_lengths, expected {want}")
+            digests.add(hashlib.sha256(got).hexdigest())
+            runs[side].append({"seconds": seconds, "bytes": len(got), "calls": len(calls),
+                               "launches": launches,
+                               "match_lengths_s": spans.get("lz.match_lengths", 0.0)})
+        if len(digests) != 1:
+            raise AssertionError(f"{what}: the bytes differ between the kernel and the plain "
+                                 f"version")
+        out["launches_by_path"][what] = runs["kernel"][0]["launches"]
+        log(f"{what} ({card_label}): {runs['kernel'][0]['bytes']} bytes on every run; "
+            f"the kernel's runs {[r['launches'] for r in runs['kernel']]} launches for "
+            f"{[r['calls'] for r in runs['kernel']]} calls of match_lengths; "
+            f"seconds plain {[round(r['seconds'], 4) for r in runs['plain']]}, kernel "
+            f"{[round(r['seconds'], 4) for r in runs['kernel']]}; lz.match_lengths s plain "
+            f"{[round(r['match_lengths_s'], 5) for r in runs['plain']]}, kernel "
+            f"{[round(r['match_lengths_s'], 5) for r in runs['kernel']]}")
+        out["callers"][what] = runs
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2923,6 +3086,14 @@ def main() -> int:
                                     cc["sort"]["cab_mszip_rows"]["max_abs_err"])
     sort_entry["launches_by_path"].update(cab_mszip=cc["cab_mszip_launches"])
     sort_entry["cab_mszip_rows"] = cc["sort"]["cab_mszip_rows"]
+
+    # 16. the shared LZ matcher's exact lengths on the card, and its callers
+    t = time.time()
+    lm = lz_match_phase(corpus, dev, f"{card_name}, {power_limit}")
+    log(f"phase 16 in {time.time() - t:.1f} s")
+    kernels.append({"name": "lz_match_lengths", "replaces": REPLACES["lz_match_lengths"],
+                    **lm["kernel_info"], "launches": lm["launches_by_path"]["gzip"],
+                    "launches_by_path": lm["launches_by_path"], "shapes": lm["shapes"]})
 
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

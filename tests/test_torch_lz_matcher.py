@@ -18,6 +18,7 @@ from tpu7z.models.lz4 import block as jblock  # noqa: E402
 from tpu7z.models.lzma import encoder as jenc  # noqa: E402
 from tpu7z_torch.ops import hash_chain  # noqa: E402
 from tpu7z_torch.utils.corpus import make_corpus  # noqa: E402
+from tests.test_torch_lz_match_cuda import EDGES, edge_cases  # noqa: E402
 
 TEXT = 696156            # the corpus's first byte past its sparse chunk
 LENGTHS = ["0-20", 499, 500, 501, 4096, 65546]
@@ -111,6 +112,19 @@ def test_match_lengths_past_a_chain_end():
     got = hash_chain.match_lengths(_t(s), _t(pos), _t(cand[pos]), _t(limit)).numpy()
     assert np.array_equal(got, want)
     assert want.max() > 2000
+
+
+@pytest.mark.parametrize("name", EDGES)
+def test_match_lengths_edges_equal_tpu7z(name):
+    """The edge inputs that the card's kernel is held to (an empty `pos`,
+    limits under 4, positions at n - 4, a chain end past which the match
+    runs on, a bound long enough to be split, entries out of order)
+    through the plain version on the CPU."""
+    s, pos, cand, limit = edge_cases()[name]
+    want = jblock._match_lengths(s, pos, cand, limit)
+    got = hash_chain.match_lengths(_t(s), _t(pos), _t(cand), _t(limit))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want)
 
 
 def _next_from_parse(s):

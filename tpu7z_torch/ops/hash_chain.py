@@ -35,17 +35,25 @@ bit for bit:
 The 64-bit arithmetic runs on int64 tensors: +, - and * wrap modulo 2**64
 in two's complement, which gives the bits numpy's uint64 gives. Powers
 are built by binary exponentiation (one multiply a bit of the exponent),
-never by `cumprod`. The probe and panel loops read the size of their
-active set back to the host once a step, to compact it; `STEPS` counts
-the probe loops' steps.
+never by `cumprod`. The probe loops read the size of their active set
+back to the host once a step, to compact it; `STEPS` counts their steps.
+
+`match_lengths` on a CUDA tensor is one launch of the hand-written kernel
+in csrc/lz_match.cu, with no host read and no PyTorch scan
+(`LAUNCHES["lz_match_lengths"]` counts the calls that launch it); on a
+CPU tensor it is its plain version, `match_lengths_ref`, tensor code
+whose panel loop reads its active set back to the host once a pass.
+There is no fallback between the two.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..utils import trace
-from . import match
+from . import _build, match
 from .lz4_plane import _mul32
 
 HASH_MULT = 2654435761
@@ -59,10 +67,51 @@ _M64 = (1 << 64) - 1
 
 # host round trips of the probe loops since the last reset
 STEPS = {"gallop": 0, "refine": 0}
+# launches of csrc/lz_match.cu made by `match_lengths` in this process
+LAUNCHES = {"lz_match_lengths": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_lib = None
 
 
 def reset_steps():
     STEPS["gallop"] = STEPS["refine"] = 0
+
+
+def reset_launches():
+    LAUNCHES["lz_match_lengths"] = 0
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.load("lz_match")
+        lib.lz_match_launch.argtypes = [_P] * 6 + [_I, _I, _P]
+        lib.lz_match_launch.restype = ctypes.c_int
+        lib.lz_match_scratch.argtypes = [_I]
+        lib.lz_match_scratch.restype = ctypes.c_longlong
+        lib.lz_match_max_n.argtypes = []
+        lib.lz_match_max_n.restype = ctypes.c_int
+        lib.lz_match_error_string.argtypes = [_I]
+        lib.lz_match_error_string.restype = ctypes.c_char_p
+        lib.lz_match_kernel_info.argtypes = 5 * [ctypes.POINTER(_I)]
+        lib.lz_match_kernel_info.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def kernel_info():
+    """What the compiler and the current card make of csrc/lz_match.cu's
+    kernel: registers and local (spill) bytes a thread, static shared bytes
+    and threads a CTA, resident CTAs per SM."""
+    lib = _library()
+    vals = [_I() for _ in range(5)]
+    err = lib.lz_match_kernel_info(*[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"lz_match_kernel_info: {lib.lz_match_error_string(err).decode()}")
+    return dict(zip(("regs", "local_bytes", "shared_bytes", "threads", "ctas_per_sm"),
+                    (v.value for v in vals)))
 
 
 def _signed(x: int) -> int:
@@ -163,55 +212,129 @@ def _panel_lengths(s, a, b, bound):
     return run
 
 
+def match_lengths_ref(s, pos, cand, limit):
+    """Plain version of `match_lengths`, tensor code on any device: the
+    same integers. A position p whose successor p + 1 is in `pos` with
+    candidate cand + 1, and whose byte p + 4 equals cand + 4, has the
+    successor's common prefix plus one: such links form chains, each
+    position's chain end is found by a suffix minimum over a plane of the
+    n + 1 positions (`cummin`), and only each chain's last position
+    compares panels (`_panel_lengths`, whose first differing byte is a
+    `cumprod`), up to the most any position of its chain can use. Host
+    reads: the chain ends (`read.lz_chain_ends`) and those of
+    `_panel_lengths`."""
+    dev = s.device
+    n = s.numel()
+    pos = pos.to(torch.int64)
+    cand = cand.to(torch.int64)
+    cap = (limit.to(torch.int64) - VERIFIED).clamp(min=0)
+    if pos.numel() == 0:
+        return cap + VERIFIED
+    plane = torch.full((n + 1,), -1, dtype=torch.int64, device=dev)
+    plane[pos] = cand
+    at = pos + VERIFIED
+    inside = at < n
+    last = n - 1
+    same = s[at.clamp(max=last)] == s[(cand + VERIFIED).clamp(max=last)]
+    link = inside & same & (plane[(pos + 1).clamp(max=n)] == cand + 1)
+    # each position's chain end: the first unlinked position at or after
+    # it, a suffix minimum over the plane
+    mark = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+    mark[pos] = torch.where(link, n, pos)
+    end = torch.cummin(mark.flip(0), 0).values.flip(0)[pos]
+    # what the chain end's panels must cover for every position behind it
+    dist = end - pos
+    need = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    need.scatter_reduce_(0, end, cap - dist, "amax", include_self=True)
+    with trace.span("read.lz_chain_ends"):
+        ends = pos[~link]
+    ec = plane[ends]
+    room = (n - (ends + VERIFIED)).clamp(min=0)
+    bound = torch.minimum(need[ends], room)
+    tail = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    tail[ends] = _panel_lengths(s, ends + VERIFIED, ec + VERIFIED, bound)
+    return VERIFIED + torch.minimum(dist + tail[end], cap)
+
+
+def launch_bytes(n: int, m: int) -> int:
+    """Bytes one launch of csrc/lz_match.cu over n bytes and m entries
+    reads and writes by its contract: pos, cand and limit read and the
+    lengths written (8 bytes an entry each), the candidate plane written
+    and read (4 bytes a position each way), each entry's reach and tail
+    written and read (4 bytes an entry each way), and the link and
+    chain-end words written and read (4 bytes a word each way). The bytes
+    of s it compares, which the data asks for, are left out."""
+    return 32 * m + 8 * (n + 1) + 8 * m + 16 * (-(-n // 32))
+
+
+def _check(s, pos, cand, limit):
+    if s.dtype != torch.uint8 or s.dim() != 1 or not s.is_contiguous():
+        raise ValueError("s: expected a contiguous 1-D uint8 tensor")
+    for name, t in (("pos", pos), ("cand", cand), ("limit", limit)):
+        if t.dim() != 1 or t.shape != pos.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(pos.shape)}")
+        if t.device != s.device:
+            raise ValueError(f"{name}: on {t.device}, s on {s.device}")
+    max_n = _library().lz_match_max_n()
+    if s.numel() > max_n:
+        raise ValueError(f"s: {s.numel()} bytes, more than the kernel's int32 positions "
+                         f"take ({max_n})")
+
+
+def buffers(n: int, m: int, device):
+    """What the kernel writes over n bytes and m entries: the int64
+    lengths and its int32 scratch (the planes, words and queue)."""
+    out = torch.empty(m, dtype=torch.int64, device=device)
+    scratch = torch.empty(_library().lz_match_scratch(n), dtype=torch.int32, device=device)
+    return out, scratch
+
+
+def _launch(s, pos, cand, limit, out, scratch):
+    """The kernel's one launch on the current stream, into buffers from
+    `buffers`; adds one to LAUNCHES["lz_match_lengths"]."""
+    lib = _library()
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    err = lib.lz_match_launch(s.data_ptr(), pos.data_ptr(), cand.data_ptr(), limit.data_ptr(),
+                              out.data_ptr(), scratch.data_ptr(), s.numel(), pos.numel(), stream)
+    if err != 0:
+        raise RuntimeError(f"lz_match_lengths: {lib.lz_match_error_string(err).decode()}")
+    LAUNCHES["lz_match_lengths"] += 1
+    return out
+
+
 def match_lengths(s, pos, cand, limit):
     """int64: tpu7z's `_match_lengths` (block.py:195) of the uint8 row `s`,
     each entry 4 plus the number of leading bytes past the first 4 on
     which s[pos:] and s[cand:] agree, at most limit - 4: the exact common
     prefix of a verified candidate capped by `limit`. `pos` holds
-    distinct positions, `cand` earlier ones, and pos + limit <= len(s).
+    distinct positions, `cand` earlier ones (0 <= cand < pos), and
+    pos + limit <= len(s).
 
     tpu7z widens byte panels until each row mismatches; its `depth > n`
     break never ends a row early (a row still active after a pass has
     matched all of its panels and still lies below its limit <= n). Here
-    a position p whose successor p + 1 is in `pos` with candidate
-    cand + 1, and whose byte p + 4 equals cand + 4, has the successor's
-    common prefix plus one: such links form chains, and only each chain's
-    last position compares panels (`_panel_lengths`), up to the most any
-    position of its chain can use. A span `lz.match_lengths` when tracing
-    is on, holding a host read of the chain ends (`read.lz_chain_ends`)
-    and those of `_panel_lengths`."""
+    a position's length follows from its successor's where they continue
+    one match, and only the last position of each such chain compares
+    bytes (`match_lengths_ref` says how). On a CUDA tensor that is one
+    launch of csrc/lz_match.cu (a span `lz.match_kernel` carrying its
+    `bytes`), with no host read; s may then hold at most 2**31 - 2**22 - 1
+    bytes (`lz_match_max_n` of the library), and a longer one raises. On
+    a CPU tensor it is `match_lengths_ref`. A span `lz.match_lengths` when tracing is
+    on."""
     dev = s.device
-    n = s.numel()
     with trace.stage("lz.match_lengths", dev):
-        pos = pos.to(torch.int64)
-        cand = cand.to(torch.int64)
-        cap = (limit.to(torch.int64) - VERIFIED).clamp(min=0)
+        if dev.type == "cpu":
+            return match_lengths_ref(s, pos, cand, limit)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        pos = pos.to(torch.int64).contiguous()
+        cand = cand.to(torch.int64).contiguous()
+        limit = limit.to(torch.int64).contiguous()
+        _check(s, pos, cand, limit)
         if pos.numel() == 0:
-            return cap + VERIFIED
-        plane = torch.full((n + 1,), -1, dtype=torch.int64, device=dev)
-        plane[pos] = cand
-        at = pos + VERIFIED
-        inside = at < n
-        last = n - 1
-        same = s[at.clamp(max=last)] == s[(cand + VERIFIED).clamp(max=last)]
-        link = inside & same & (plane[(pos + 1).clamp(max=n)] == cand + 1)
-        # each position's chain end: the first unlinked position at or after
-        # it, a suffix minimum over the plane
-        mark = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
-        mark[pos] = torch.where(link, n, pos)
-        end = torch.cummin(mark.flip(0), 0).values.flip(0)[pos]
-        # what the chain end's panels must cover for every position behind it
-        dist = end - pos
-        need = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-        need.scatter_reduce_(0, end, cap - dist, "amax", include_self=True)
-        with trace.span("read.lz_chain_ends"):
-            ends = pos[~link]
-        ec = plane[ends]
-        room = (n - (ends + VERIFIED)).clamp(min=0)
-        bound = torch.minimum(need[ends], room)
-        tail = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-        tail[ends] = _panel_lengths(s, ends + VERIFIED, ec + VERIFIED, bound)
-        return VERIFIED + torch.minimum(dist + tail[end], cap)
+            return (limit - VERIFIED).clamp(min=0) + VERIFIED
+        with trace.span("lz.match_kernel", bytes=launch_bytes(s.numel(), pos.numel())):
+            return _launch(s, pos, cand, limit, *buffers(s.numel(), pos.numel(), dev))
 
 
 def greedy_walk(next_pos, n: int, start=0):
